@@ -1,0 +1,139 @@
+"""Carry parameters and population state across from the JAX reference.
+
+The reference keeps cnn parameters as a nested pytree (dicts, and a list
+of stages of blocks) with HWIO conv weights; the port keeps a flat dict
+of dotted names with OIHW conv weights. These functions convert numpy
+trees (the reference's arrays after `np.asarray`) to the port's tensors
+and back, so a test can feed both packages the same state and compare in
+the reference's layout. Leaves may carry leading axes (a stacked
+population): only the last four axes of a conv weight are transposed.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.client_state import PopulationState
+from repro_torch.device import resolve_device
+
+CONV_LEAVES = ("conv", "conv1", "conv2", "proj")
+
+
+def _is_conv(name: str) -> bool:
+    return name.rsplit(".", 1)[-1] in CONV_LEAVES
+
+
+def _hwio_to_oihw(a):
+    n = a.ndim
+    return np.transpose(a, tuple(range(n - 4)) + (n - 1, n - 2, n - 4, n - 3))
+
+
+def _oihw_to_hwio(a):
+    n = a.ndim
+    return np.transpose(a, tuple(range(n - 4)) + (n - 2, n - 1, n - 3, n - 4))
+
+
+def flatten_tree(tree, prefix: str = "") -> dict:
+    """Nested dicts/lists/tuples of arrays → {dotted name: array}."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten_tree(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def unflatten_tree(flat: dict) -> dict:
+    """{dotted name: array} → nested tree; numeric components become
+    list entries (the reference's `stages` lists)."""
+    root: dict = {}
+    for name, leaf in flat.items():
+        node = root
+        parts = name.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(root)
+
+
+def params_from_reference(np_tree, device="cuda") -> dict:
+    """Reference cnn params (numpy, any leading axes) → port flat dict
+    (arrays are copied) on `device`; raises if it names CUDA and there is
+    none."""
+    device = resolve_device(device)
+    out = {}
+    for name, leaf in flatten_tree(np_tree).items():
+        a = np.asarray(leaf)
+        if _is_conv(name):
+            a = _hwio_to_oihw(a)
+        out[name] = torch.from_numpy(np.array(a)).to(device)
+    return out
+
+
+def params_to_reference(params: dict) -> dict:
+    """Port flat dict → reference nested numpy tree (HWIO convs)."""
+    flat = {}
+    for name, t in params.items():
+        a = t.detach().float().cpu().numpy() if t.is_floating_point() \
+            else t.detach().cpu().numpy()
+        flat[name] = _oihw_to_hwio(a) if _is_conv(name) else a
+    return unflatten_tree(flat)
+
+
+def _opt_from_reference(opt, device):
+    mu = params_from_reference(opt["mu"], device=device)
+    return {"mu": {n: t.float() for n, t in mu.items()},
+            "count": torch.from_numpy(np.array(opt["count"], np.int32)).to(
+                device)}
+
+
+def population_from_reference(state_np, device="cuda") -> PopulationState:
+    """A reference PopulationState whose leaves are numpy arrays (fields
+    by attribute or key) → the port's PopulationState on `device`,
+    including the optimizer momenta, loss_matrix, last_selected and round;
+    raises if `device` names CUDA and there is none."""
+    device = resolve_device(device)
+    get =(state_np.__getitem__ if isinstance(state_np, dict)
+           else lambda f: getattr(state_np, f))
+    return PopulationState(
+        extractor=params_from_reference(get("extractor"), device=device),
+        header=params_from_reference(get("header"), device=device),
+        opt_e=_opt_from_reference(get("opt_e"), device),
+        opt_h=_opt_from_reference(get("opt_h"), device),
+        loss_matrix=torch.from_numpy(
+            np.array(get("loss_matrix"), np.float32)).to(device),
+        last_selected=torch.from_numpy(
+            np.array(get("last_selected"), np.int32)).to(device),
+        round=torch.from_numpy(np.array(get("round"), np.int32)),
+    )
+
+
+def population_to_reference(state: PopulationState) -> dict:
+    """The port's PopulationState → a dict of the reference's fields as
+    numpy trees (reference layout)."""
+    def opt(o):
+        return {"mu": params_to_reference(o["mu"]),
+                "count": o["count"].cpu().numpy()}
+
+    return {
+        "extractor": params_to_reference(state.extractor),
+        "header": params_to_reference(state.header),
+        "opt_e": opt(state.opt_e),
+        "opt_h": opt(state.opt_h),
+        "loss_matrix": state.loss_matrix.cpu().numpy(),
+        "last_selected": state.last_selected.cpu().numpy(),
+        "round": state.round.cpu().numpy(),
+    }

@@ -1,0 +1,274 @@
+"""PFedDST Algorithm 1 — one synchronous communication round over the
+population, reference `repro.core.rounds`.
+
+Round structure (per active client i):
+  1. score every peer:      S_ij = s_p·(α·s_l − s_d + c)      (Eq. 6–9)
+  2. select peers M_i       (top-k, threshold or random)
+  3. aggregate extractors   e_i ← avg{e_j : j ∈ M_i ∪ {i}}
+  4. phase-e training       K_e epochs, header frozen          (Eq. 3)
+  5. phase-h training       K_h epochs, extractor frozen       (Eq. 4)
+  6. update context arrays  (loss array l, recency array t)
+
+Eq. 6 probes run only for the sampled rows; inactive rows keep their
+cached `loss_matrix` entries. Training runs only the sampled rows, one
+client at a time, and scatters them back.
+
+Not ported yet: the comms fabric's candidate masks, per-link costs and
+packed sparse-neighbour scoring (ROADMAP queue 1 item 8), the
+semi-async `hetero` variant (item 9, asking for it raises) and the
+threat/defense hooks (item 11). Without a fabric the Eq. 9 cost is the
+scalar `fl.comm_cost` and every peer is a candidate.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.aggregation import (
+    aggregate_extractors,
+    selection_to_weights,
+)
+from repro_torch.core.client_state import PopulationState, stack_trees
+from repro_torch.core.partial_freeze import PhaseSteps
+from repro_torch.core.scoring import (
+    flatten_headers,
+    header_distance_matrix,
+    loss_disparity_rows,
+    recency_scores,
+    score_topk,
+    selected_components,
+)
+from repro_torch.core.selection import (
+    NEG,
+    as_cost_matrix,
+    combined_scores,
+    select_peers,
+    topk_to_mask,
+    update_recency,
+)
+from repro_torch.data.pipeline import sample_client_batches
+from repro_torch.fl.engine import (
+    ExchangePlan,
+    RoundContext,
+    gather_rows,
+    run_round,
+    scan_train,
+    scatter_rows,
+    where_tree,
+)
+from repro_torch.models.split import merge_params
+
+# stream layout of one PFedDST round (the reference's PFEDDST_STREAMS)
+PFEDDST_STREAMS = ("probe", "act", "e", "h", "rand")
+
+
+def _client(tree, i):
+    return {k: (_client(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
+                        steps_per_epoch: int = 1, probe_size: int = 64,
+                        use_score_kernel: bool = False, hetero=None):
+    """Algorithm 1 as engine stages over a PopulationState.
+
+    use_score_kernel: route Eq. 7–9 scoring + top-k through the fused
+    `select_topk` kernel (topk selection), or the Eq. 7 Gram through the
+    `raw_gram` kernel (threshold and random selection, which keep the
+    dense chain)."""
+    if hetero is not None:
+        raise NotImplementedError(
+            "the semi-async pfeddst_async round is not ported yet "
+            "(ROADMAP queue 1 item 9)")
+
+    def score_select(state: PopulationState, ctx: RoundContext):
+        # ---- 1. scoring — Eq. 6 restricted to the sampled rows ------------
+        m = ctx.m
+        probe = sample_client_batches(ctx.streams["probe"], ctx.data,
+                                      probe_size, idx=ctx.draw("probe"))
+        params = merge_params(state.extractor, state.header)
+        s_l_rows = loss_disparity_rows(cfg, gather_rows(params,
+                                                        ctx.sampled_idx),
+                                       probe)                    # (n, M)
+        s_l = state.loss_matrix.clone()
+        s_l[ctx.sampled_idx] = s_l_rows
+        cost = fl.comm_cost
+        flat = flatten_headers(state.header)
+        fused = (use_score_kernel and m > 1 and fl.peers_per_round > 0
+                 and fl.selection not in ("threshold", "random"))
+        if fused:
+            # ---- 1b/2. fused Eq. 7–9 + top-k --------------------------------
+            vals, idx, sd_stats = score_topk(
+                flat, state.last_selected, s_l, state.round,
+                alpha=fl.alpha, lam=fl.recency_lambda, comm_cost=cost,
+                k=min(fl.peers_per_round, m - 1))
+            mask = topk_to_mask(idx, vals, m)
+            ctx.aux.update(s_l=s_l, s_l_rows=s_l_rows, topk_vals=vals,
+                           topk_idx=idx, sd_stats=sd_stats)
+        else:
+            s_d = header_distance_matrix(flat, use_kernel=use_score_kernel)
+            s_p = recency_scores(state.last_selected, state.round,
+                                 fl.recency_lambda)
+            scores = combined_scores(s_l, s_d, s_p, alpha=fl.alpha,
+                                     comm_cost=cost)
+            # ---- 2. selection --------------------------------------------
+            if fl.selection == "threshold":
+                mask = select_peers(scores, threshold=fl.score_threshold)
+            elif fl.selection == "random":
+                rand = ctx.draw("rand")
+                if rand is None:
+                    rand = torch.rand((m, m), generator=ctx.streams["rand"])
+                if not isinstance(rand, torch.Tensor):
+                    rand = torch.from_numpy(np.array(rand))
+                rand = rand.to(flat.device, torch.float32)
+                eye = torch.eye(m, dtype=torch.bool, device=flat.device)
+                mask = select_peers(torch.where(eye, -1.0, rand),
+                                    k=fl.peers_per_round)
+            else:
+                mask = select_peers(scores, k=fl.peers_per_round)
+            ctx.aux.update(s_l=s_l, s_l_rows=s_l_rows, s_d=s_d,
+                           scores=scores)
+        mask = mask & ctx.active[:, None]
+
+        # ---- Eq. 9 score decomposition over the selected edges ------------
+        n_sel = mask.sum().clamp_min(1).float()
+        if fused:
+            comp = selected_components(
+                flat, state.last_selected, s_l, state.round,
+                ctx.aux["topk_idx"], alpha=fl.alpha, lam=fl.recency_lambda,
+                comm_cost=cost)
+            valid = (ctx.aux["topk_vals"] > NEG / 2) & ctx.active[:, None]
+            for name in ("s_l", "s_d", "s_p", "cost"):
+                ctx.record(f"sel_{name}_mean",
+                           torch.where(valid, comp[name], 0.0).sum() / n_sel)
+        else:
+            for name, mat in (("s_l", s_l), ("s_d", s_d), ("s_p", s_p),
+                              ("cost", as_cost_matrix(cost, m,
+                                                      flat.device))):
+                ctx.record(f"sel_{name}_mean",
+                           torch.where(mask, mat, 0.0).sum() / n_sel)
+
+        ctx.plan = ExchangePlan("p2p", active=ctx.active, edges=mask,
+                                weights=selection_to_weights(
+                                    mask, include_self=True))
+        return state
+
+    def aggregate(state: PopulationState, ctx: RoundContext):
+        # ---- 3. aggregate extractors --------------------------------------
+        agg_e = aggregate_extractors(state.extractor, ctx.plan.weights)
+        ctx.aux["agg_e"] = where_tree(ctx.active, agg_e, state.extractor)
+        return state
+
+    def _active_mean(loss_row, active):
+        return (loss_row * active).sum() / active.sum().clamp_min(1)
+
+    def _train_subset(ctx, step, trained, frozen, opt_state, stream, n_steps):
+        """Run `step` for n_steps on each sampled client, one client at a
+        time; → (trained, opt_state, losses (n_steps, n)) over the subset."""
+        data_sub = gather_rows(ctx.data, ctx.sampled_idx)
+
+        def apply(carry, batch):
+            tr, os_ = carry
+            outs = [step(_client(tr, i), _client(frozen, i),
+                         _client(os_, i), _client(batch, i))
+                    for i in range(ctx.sampled_idx.shape[0])]
+            return ((stack_trees([o[0] for o in outs]),
+                     stack_trees([o[1] for o in outs])),
+                    torch.stack([o[2]["loss"] for o in outs]))
+
+        (new, opt), losses = scan_train(
+            apply, (trained, opt_state), data_sub, ctx.streams[stream],
+            n_steps, fl.batch_size, rows=ctx.sampled_idx.cpu(), total=ctx.m,
+            idx=ctx.draw(stream))
+        return new, opt, losses
+
+    def phase_e(state: PopulationState, ctx: RoundContext):
+        # ---- 4. phase-e (header frozen) -----------------------------------
+        idx = ctx.sampled_idx
+        agg_sub, h_sub, oe_sub, e_sub = gather_rows(
+            (ctx.aux["agg_e"], state.header, state.opt_e, state.extractor),
+            idx)
+        new_e, opt_e, loss_e = _train_subset(
+            ctx, steps.phase_e, agg_sub, h_sub, oe_sub, "e",
+            fl.epochs_extractor * steps_per_epoch)
+        act_sub = ctx.active[idx]
+        new_e = scatter_rows(state.extractor, idx,
+                             where_tree(act_sub, new_e, e_sub))
+        opt_e = scatter_rows(state.opt_e, idx,
+                             where_tree(act_sub, opt_e, oe_sub))
+        loss_full = torch.zeros(ctx.m, device=loss_e.device)
+        loss_full[idx] = loss_e[-1]
+        ctx.metrics["train_loss_e"] = _active_mean(loss_full, ctx.active)
+        return state._replace(extractor=new_e, opt_e=opt_e)
+
+    def phase_h(state: PopulationState, ctx: RoundContext):
+        # ---- 5. phase-h (extractor frozen) --------------------------------
+        idx = ctx.sampled_idx
+        h_sub, e_sub, oh_sub = gather_rows(
+            (state.header, state.extractor, state.opt_h), idx)
+
+        def step(h, e, o, batch):
+            return steps.phase_h(e, h, o, batch)
+
+        new_h, opt_h, loss_h = _train_subset(
+            ctx, step, h_sub, e_sub, oh_sub, "h",
+            fl.epochs_header * steps_per_epoch)
+        act_sub = ctx.active[idx]
+        new_h = scatter_rows(state.header, idx,
+                             where_tree(act_sub, new_h, h_sub))
+        opt_h = scatter_rows(state.opt_h, idx,
+                             where_tree(act_sub, opt_h, oh_sub))
+        loss_full = torch.zeros(ctx.m, device=loss_h.device)
+        loss_full[idx] = loss_h[-1]
+        ctx.metrics["train_loss_h"] = _active_mean(loss_full, ctx.active)
+        return state._replace(header=new_h, opt_h=opt_h)
+
+    def update_context(state: PopulationState, ctx: RoundContext):
+        # ---- 6. context arrays --------------------------------------------
+        m = ctx.m
+        mask = ctx.plan.edges
+        loss_matrix = torch.where(ctx.active[:, None], ctx.aux["s_l"],
+                                  state.loss_matrix)
+        if "scores" in ctx.aux:
+            scores, s_d = ctx.aux["scores"], ctx.aux["s_d"]
+            sel_sum = torch.where(mask, scores, 0.0).sum()
+            sd_sum, sd_trace = s_d.sum(), torch.trace(s_d)
+        else:
+            # fused: the selected scores are the emitted top-k values and
+            # the s_d sums come from the kernel's row statistics
+            vals = ctx.aux["topk_vals"]
+            sel = (vals > NEG / 2) & ctx.active[:, None]
+            sel_sum = torch.where(sel, vals, 0.0).sum()
+            sd_sum = ctx.aux["sd_stats"][:, 0].sum()
+            sd_trace = ctx.aux["sd_stats"][:, 1].sum()
+        ctx.metrics.update(
+            mean_selected_score=sel_sum / mask.sum().clamp_min(1),
+            s_l_mean=ctx.aux["s_l_rows"].mean(),
+            s_d_offdiag_mean=(sd_sum - sd_trace) / (m * (m - 1)),
+            select_mask=mask,
+        )
+        return state._replace(
+            loss_matrix=loss_matrix,
+            last_selected=update_recency(state.last_selected, mask,
+                                         state.round),
+            round=state.round + 1,
+        )
+
+    return (score_select, aggregate, phase_e, phase_h, update_context)
+
+
+def pfeddst_round(cfg, fl, steps: PhaseSteps, state: PopulationState,
+                  train_data: dict, key, *, steps_per_epoch: int = 1,
+                  probe_size: int = 64, use_score_kernel: bool = False,
+                  draws: dict | None = None):
+    """One communication round. train_data: dict of (M, N, ...) tensors;
+    key: the round key (tuple of ints); draws: optional injected draws
+    (see fl.engine). → (new_state, metrics dict)."""
+    stages = make_pfeddst_stages(cfg, fl, steps,
+                                 steps_per_epoch=steps_per_epoch,
+                                 probe_size=probe_size,
+                                 use_score_kernel=use_score_kernel)
+    return run_round(stages, state, train_data, key,
+                     m=state.loss_matrix.shape[0],
+                     ratio=fl.client_sample_ratio,
+                     key_streams=PFEDDST_STREAMS, draws=draws)

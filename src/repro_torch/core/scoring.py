@@ -1,0 +1,117 @@
+"""PFedDST scoring — the three peer-evaluation signals (paper §II-B),
+reference `repro.core.scoring`.
+
+* loss disparity  s_l (Eq. 6): loss of client i's model on peer j's probe.
+* header distance s_d (Eq. 7): cosine similarity of header weight vectors.
+* peer recency    s_p (Eq. 8): exponential CDF of rounds since selection.
+
+Population entry points take client-stacked dicts (leading M axis) and
+return (M, M) matrices: row i = client i scoring peer j.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.peer_score import gram_to_cosine
+from repro_torch.kernels.ref import inverse_norms, recency
+from repro_torch.models import model as model_mod
+from repro_torch.utils.pytree import leaf_order
+
+
+# ---------------------------------------------------------------------------
+# Eq. 6 — loss disparity
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def loss_disparity_rows(cfg, stacked_params_rows: dict, probe_batches: dict):
+    """L[r, j] = eval-loss of row-client r's model on client j's probe.
+
+    stacked_params_rows: dict of (R, ...) tensors (typically the round's
+    sampled clients); probe_batches: dict of (M, B, ...) tensors. Each row
+    model scores all M probes in one forward of M·B images. → (R, M) f32.
+    """
+    r = next(iter(stacked_params_rows.values())).shape[0]
+    rows = []
+    for i in range(r):
+        params = {n: t[i] for n, t in stacked_params_rows.items()}
+        rows.append(model_mod.eval_loss_grouped(
+            cfg, params, probe_batches["images"], probe_batches["labels"]))
+    return torch.stack(rows)
+
+
+# ---------------------------------------------------------------------------
+# Eq. 7 — header cosine similarity
+# ---------------------------------------------------------------------------
+
+def flatten_headers(stacked_header: dict):
+    """Client-stacked header dict → (M, P) float32, in the reference's
+    leaf order."""
+    return torch.cat([stacked_header[n].reshape(
+        stacked_header[n].shape[0], -1).float()
+        for n in leaf_order(stacked_header)], dim=1)
+
+
+def header_distance_matrix(headers_flat, *, use_kernel: bool = False):
+    """S_d[i, j] = cos(h_i, h_j) ∈ [-1, 1]. headers_flat: (M, P).
+
+    use_kernel routes the Gram through `ops.raw_gram` (the CUDA kernel on
+    a CUDA tensor); both routes share `gram_to_cosine`."""
+    if use_kernel:
+        return ops.cosine_gram(headers_flat)
+    x = headers_flat.float()
+    return gram_to_cosine(x @ x.T)
+
+
+# ---------------------------------------------------------------------------
+# fused Eq. 7–9 + top-k — the streaming selection entry point
+# ---------------------------------------------------------------------------
+
+def score_topk(headers_flat, last_selected, loss_matrix, round_t, *,
+               alpha: float, lam: float, comm_cost, k: int,
+               candidate_mask=None):
+    """Fused Eq. 7–9 scoring + per-row top-k selection through
+    `ops.select_topk` (the CUDA kernel on CUDA tensors).
+
+    → (values (M, k), indices (M, k), s_d_stats (M, 2)) with
+    s_d_stats[:, 0] = Σ_j s_d[i, j] and s_d_stats[:, 1] = s_d[i, i].
+    Convert to a mask with `selection.topk_to_mask`."""
+    m = headers_flat.shape[0]
+    if isinstance(comm_cost, torch.Tensor) and comm_cost.dim() != 0 \
+            and tuple(comm_cost.shape) != (m, m):
+        raise ValueError(f"comm_cost must be a scalar or ({m}, {m}) matrix, "
+                         f"got shape {tuple(comm_cost.shape)}")
+    return ops.select_topk(headers_flat, last_selected, loss_matrix, round_t,
+                           comm_cost, candidate_mask, k=k, alpha=float(alpha),
+                           lam=float(lam))
+
+
+# ---------------------------------------------------------------------------
+# Eq. 9 decomposition over selected pairs — the telemetry side-channel
+# ---------------------------------------------------------------------------
+
+def selected_components(headers_flat, last_selected, loss_matrix, round_t,
+                        idx, *, alpha: float, lam: float, comm_cost):
+    """Eq. 9 components for each row's selected columns idx (M, k),
+    without any (M, M) matrix. → dict of (M, k) float32: s_l, s_d, s_p,
+    cost and the recombined score."""
+    x = headers_flat.float()
+    xn = x * inverse_norms(x)[:, None]
+    idx = idx.long()
+    s_d = torch.einsum("mp,mkp->mk", xn, xn[idx]).clamp(-1.0, 1.0)
+    last = torch.gather(last_selected, 1, idx)
+    s_p = recency(last, round_t, lam)
+    s_l = torch.gather(loss_matrix, 1, idx).float()
+    c = torch.as_tensor(comm_cost, dtype=torch.float32, device=x.device)
+    c = c.expand(idx.shape) if c.dim() == 0 else torch.gather(c, 1, idx)
+    score = s_p * (alpha * s_l - s_d + c)
+    return {"s_l": s_l, "s_d": s_d, "s_p": s_p, "cost": c, "score": score}
+
+
+# ---------------------------------------------------------------------------
+# Eq. 8 — peer recency
+# ---------------------------------------------------------------------------
+
+def recency_scores(last_selected, t, lam: float):
+    """s_p[i, j] = 1 − exp(−λ·(t − t0[i, j])); never selected (−1) → 1."""
+    return recency(last_selected, t, lam)

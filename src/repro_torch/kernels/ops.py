@@ -1,0 +1,76 @@
+"""Public kernel wrappers — the hooks the core layers call (reference
+`repro.kernels.ops`).
+
+  * core/scoring.py  header_distance_matrix(use_kernel=True) → cosine_gram
+  * core/scoring.py  score_topk                              → select_topk
+
+Routing is by the device of the input, never by a fallback: a CUDA tensor
+reaches the CUDA kernel (or the kernel raises), a CPU tensor takes the
+plain PyTorch version. `impl="plain"` asks for the plain version
+explicitly on either device (the tests and `chip_smoke.py` compare the
+two with it); `impl="cuda"` on a CPU tensor raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import peer_score as _ps
+from repro_torch.kernels import select_score as _ss
+
+KERNELS = {"raw_gram": _ps.raw_gram_cuda, "select_topk": _ss.select_topk_cuda}
+
+
+def launch_counts() -> dict:
+    """Launches of each CUDA kernel wrapper in this process."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _route(x, impl):
+    if impl is None:
+        return "cuda" if x.is_cuda else "plain"
+    if impl not in ("cuda", "plain"):
+        raise ValueError(f"unknown impl {impl!r} (use 'cuda' or 'plain')")
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError("impl='cuda' needs CUDA tensors")
+    return impl
+
+
+def raw_gram(x, *, impl: str | None = None):
+    """x: (M, P) → (M, M) float32 un-normalized Gram x @ x.T."""
+    if _route(x, impl) == "cuda":
+        return _ps.raw_gram_cuda(x.float().contiguous())
+    return _ps.raw_gram_plain(x)
+
+
+def cosine_gram(x, *, impl: str | None = None):
+    """x: (M, P) → (M, M) f32 cosine-similarity matrix (paper Eq. 7)."""
+    return _ps.gram_to_cosine(raw_gram(x, impl=impl))
+
+
+def select_topk(x, last_selected, s_l, t, cost, candidate_mask=None, *,
+                k: int, alpha: float, lam: float, impl: str | None = None):
+    """Fused Eq. 7–9 scoring + per-row top-k.
+
+    → (values (M, k) f32, indices (M, k) int32, s_d stats (M, 2) f32);
+    masked entries score exactly NEG, ties go to the lowest column.
+    cost is a scalar or an (M, M) matrix; candidate_mask None or (M, M)
+    bool."""
+    if _route(x, impl) == "plain":
+        return _ss.select_topk_plain(x, last_selected, s_l, t, cost,
+                                     candidate_mask, k=k, alpha=alpha,
+                                     lam=lam)
+    if isinstance(cost, torch.Tensor) and cost.dim() == 2:
+        cost = cost.float().contiguous()
+    elif isinstance(cost, torch.Tensor):
+        cost = float(cost)
+    if candidate_mask is not None:
+        candidate_mask = candidate_mask.bool().contiguous()
+    return _ss.select_topk_cuda(
+        x.float().contiguous(), last_selected.to(torch.int32).contiguous(),
+        s_l.float().contiguous(), int(t), cost, candidate_mask,
+        k=k, alpha=alpha, lam=lam)

@@ -1,0 +1,67 @@
+"""Plain PyTorch oracles — torch twins of `repro.kernels.ref`.
+
+These are the definitions of correctness the CUDA kernels are held to:
+`cosine_gram_ref` (Eq. 7), `select_score_ref` (dense masked Eq. 9) and
+`select_topk_ref` (dense Eq. 9 then a stable top-k).
+"""
+from __future__ import annotations
+
+import torch
+
+NEG = -1e30   # finite -inf of masked scores (core.selection.NEG)
+
+
+def stable_topk(scores, k: int):
+    """Per-row top-k with ties to the LOWEST column — `jax.lax.top_k`
+    semantics, which `torch.topk` does not promise. → (values, int64
+    indices)."""
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def cosine_gram_ref(x):
+    """x: (M, P) → (M, M) float32 cosine-similarity Gram, clipped to [-1,1]."""
+    x = x.float()
+    norms = x.square().sum(dim=1, keepdim=True).sqrt() + 1e-12
+    xn = x / norms
+    return (xn @ xn.T).clamp(-1.0, 1.0)
+
+
+def inverse_norms(xf):
+    """1 / (‖x_i‖ + 1e-12) per row of a float32 (M, P) matrix."""
+    return 1.0 / ((xf * xf).sum(dim=1).sqrt() + 1e-12)
+
+
+def recency(last_selected, t, lam: float):
+    """Eq. 8: 1 − exp(−λ·(t − t0)); never selected (t0 < 0) → 1."""
+    dt = (t - last_selected).clamp_min(0).float()
+    return torch.where(last_selected < 0, 1.0, 1.0 - torch.exp(-lam * dt))
+
+
+def select_score_ref(x, last_selected, s_l, t, cost, candidate_mask=None,
+                     *, alpha: float, lam: float):
+    """Dense masked Eq. 9 score matrix. → (scores (M, M) f32, cosine s_d
+    (M, M) f32). The diagonal and non-candidates score exactly NEG."""
+    m = x.shape[0]
+    xf = x.float()
+    inv = inverse_norms(xf)
+    cos = ((xf @ xf.T) * inv[:, None] * inv[None, :]).clamp(-1.0, 1.0)
+    s_p = recency(last_selected, t, lam)
+    c = torch.as_tensor(cost, dtype=torch.float32, device=x.device)
+    s = s_p * (alpha * s_l.float() - cos + c)
+    eye = torch.eye(m, dtype=torch.bool, device=x.device)
+    s = torch.where(eye, NEG, s)
+    if candidate_mask is not None:
+        s = torch.where(candidate_mask, s, NEG)
+    return s, cos
+
+
+def select_topk_ref(x, last_selected, s_l, t, cost, candidate_mask=None,
+                    *, k: int, alpha: float, lam: float):
+    """→ (values (M, k) f32, indices (M, k) int32, stats (M, 2) f32) as
+    the fused kernel emits them; stats = [Σ_j s_d[i, j], s_d[i, i]]."""
+    s, cos = select_score_ref(x, last_selected, s_l, t, cost,
+                              candidate_mask, alpha=alpha, lam=lam)
+    vals, idx = stable_topk(s, k)
+    stats = torch.stack([cos.sum(dim=1), torch.diagonal(cos)], dim=1)
+    return vals, idx.to(torch.int32), stats

@@ -1,0 +1,42 @@
+"""Tree utilities for the port's parameter and state containers.
+
+Parameters are flat dicts `{dotted name: tensor}` ("stem.conv",
+"stages.1.0.gn1.scale", "head.w"); optimizer states nest such dicts
+(`{"mu": {...}, "count": tensor}`). `tree_map` walks dicts, lists and
+tuples of tensors.
+
+`leaf_order` reproduces the reference's jax leaf order on the dotted
+names (dict keys sorted, list entries by index), so `tree_flatten_vector`
+lays a header out exactly as `repro.utils.pytree.tree_flatten_vector`
+does — that order is what the Eq. 7 cosine compares.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def tree_map(fn, tree, *rest):
+    """Apply `fn` leaf-wise over matching dict/list/tuple structures."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _path_key(name: str):
+    return tuple(int(p) if p.isdigit() else p for p in name.split("."))
+
+
+def leaf_order(names) -> list:
+    """Dotted names in the reference's jax tree-flatten order."""
+    return sorted(names, key=_path_key)
+
+
+def tree_flatten_vector(tree: dict) -> torch.Tensor:
+    """Flatten a dict of tensors into one 1-D float32 vector, in the
+    reference's leaf order (`repro.utils.pytree.tree_flatten_vector`)."""
+    return torch.cat([tree[n].reshape(-1).float()
+                      for n in leaf_order(tree)])

@@ -1,0 +1,99 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Marked `cuda`: they skip where torch.cuda.is_available() is false (the
+kernels have no CPU mode). This file imports no jax, so it also runs on a
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+
+ALPHA, LAM = 1.0, 0.5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "False); the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _case(m, p, seed, dev, *, matrix_cost, cand):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, p), generator=g, device=dev)
+    last = torch.randint(-1, 3, (m, m), generator=g, device=dev,
+                         dtype=torch.int32)
+    s_l = torch.rand((m, m), generator=g, device=dev) * 3.0
+    cost = (torch.rand((m, m), generator=g, device=dev) + 0.5
+            if matrix_cost else 1.0)
+    mask = (torch.rand((m, m), generator=g, device=dev) < 0.7) if cand \
+        else None
+    return x, last, s_l, 3, cost, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,p", [(16, 5130), (37, 130), (300, 700)])
+def test_raw_gram_kernel_matches_plain(cuda, m, p):
+    """Error ≤ 1e-4 × the largest entry: fp32 FFMA sums of P products in
+    another order than the matmul."""
+    x = torch.randn(m, p, device=cuda)
+    got = ops.raw_gram(x)
+    want = ops.raw_gram(x, impl="plain")
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(5, 4), (16, 4), (37, 10), (700, 10),
+                                 (2100, 32)])
+@pytest.mark.parametrize("matrix_cost,cand", [(False, False), (True, True)])
+def test_select_topk_kernel_matches_plain(cuda, m, k, matrix_cost, cand):
+    """Indices exact; values rtol 1e-4, row stats rtol 1e-4 + atol 1e-6·M
+    (sums of M cosines). The scores are uniform draws of s_l over [0, 3),
+    so ties closer than the kernels' rounding are rare at these sizes."""
+    args = _case(m, 257, m, cuda, matrix_cost=matrix_cost, cand=cand)
+    v, i, s = ops.select_topk(*args, k=k, alpha=ALPHA, lam=LAM)
+    pv, pi, ps = ops.select_topk(*args, k=k, alpha=ALPHA, lam=LAM,
+                                 impl="plain")
+    assert torch.equal(i, pi)
+    torch.testing.assert_close(v, pv, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(s, ps, rtol=1e-4, atol=1e-6 * m)
+
+
+@pytest.mark.cuda
+def test_select_topk_kernel_ties_go_to_lowest_column(cuda):
+    """Exactly tied scores: the lowest columns win, as in lax.top_k."""
+    m, k = 70, 5
+    x = torch.arange(1, 7, dtype=torch.float32, device=cuda).repeat(m, 1)
+    last = torch.full((m, m), -1, dtype=torch.int32, device=cuda)
+    s_l = torch.ones((m, m), device=cuda)
+    _, i, _ = ops.select_topk(x, last, s_l, 2, 0.5, k=k, alpha=ALPHA,
+                              lam=LAM)
+    want = torch.tensor([[j for j in range(m) if j != r][:k]
+                         for r in range(m)], dtype=torch.int32)
+    assert torch.equal(i.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_kernels_count_launches_and_refuse_bad_input(cuda):
+    ops.reset_launch_counts()
+    x = torch.randn(8, 33, device=cuda)
+    ops.raw_gram(x)
+    last = torch.full((8, 8), -1, dtype=torch.int32, device=cuda)
+    s_l = torch.rand(8, 8, device=cuda)
+    ops.select_topk(x, last, s_l, 0, 1.0, k=3, alpha=ALPHA, lam=LAM)
+    assert ops.launch_counts() == {"raw_gram": 1, "select_topk": 1}
+    from repro_torch.kernels.select_score import select_topk_cuda
+
+    with pytest.raises(ValueError):
+        select_topk_cuda(x, last.float(), s_l, 0, 1.0, k=3, alpha=ALPHA,
+                         lam=LAM)
+    with pytest.raises(ValueError):
+        ops.select_topk(torch.randn(40, 3, device=cuda),
+                        torch.full((40, 40), -1, dtype=torch.int32,
+                                   device=cuda),
+                        torch.rand(40, 40, device=cuda), 0, 1.0, k=33,
+                        alpha=ALPHA, lam=LAM)

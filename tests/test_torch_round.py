@@ -1,0 +1,250 @@
+"""The slice as a whole: PFedDST rounds of the port against live rounds
+of the JAX reference, with the reference's draws injected and the state
+carried across by each package on its own.
+
+Two rounds of `pfeddst` (fused select_topk route) and two of
+`pfeddst_random` (raw_gram route), M = 6, k = 2, reduced ResNet in f32
+at width 32, `use_score_kernel=True`. select_mask and last_selected must match
+exactly; loss_matrix, params and the round's scalar metrics at rtol 2e-3.
+Exact selection rests on well-separated Eq. 9 scores, which the test
+checks for the rows that select (the reference's own pfeddst fingerprint
+tests fail on near-ties, ROADMAP queue 3).
+"""
+import ast
+import dataclasses
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.configs.base import FLConfig as RefFLConfig
+from repro.core.client_state import init_population as ref_init_population
+from repro.core.partial_freeze import make_phase_steps as ref_phase_steps
+from repro.core.rounds import PFEDDST_STREAMS as REF_STREAMS
+from repro.core.rounds import make_pfeddst_stages as ref_stages
+from repro.data.synthetic import client_datasets_cifar as ref_datasets
+from repro.fl.engine import run_round as ref_run_round
+from repro.optim.sgd import sgd as ref_sgd
+from repro_torch import convert
+from repro_torch.configs import FLConfig, get_config
+from repro_torch.core.partial_freeze import make_phase_steps
+from repro_torch.core.rounds import PFEDDST_STREAMS, make_pfeddst_stages
+from repro_torch.core.scoring import flatten_headers
+from repro_torch.fl.engine import run_round
+from repro_torch.fl.simulator import run_experiment
+from repro_torch.kernels.ref import select_score_ref
+from repro_torch.optim.sgd import sgd
+
+from test_torch_support import reference_draws, to_numpy, to_torch
+
+M, K, PROBE, BATCH = 6, 2, 4, 8
+# Width 32, not the reduced config's 16: at width 16 the per-position
+# GroupNorm (8 groups) normalises 2 channels per group, and f32 training
+# is chaotic there: the reference itself, started from parameters
+# perturbed by 1e-7 (relative), ends two such rounds far from its
+# unperturbed run, while at width 32 (4 channels per group) it stays
+# within f32 rounding (tools/reference_gn_sensitivity.py), so rtol 2e-3
+# is meaningful.
+WIDTH = 32
+FL_KW = dict(num_clients=M, peers_per_round=K, batch_size=BATCH,
+             client_sample_ratio=0.5, epochs_extractor=1, epochs_header=1,
+             probe_size=PROBE, use_score_kernel=True)
+RTOL, ATOL = 2e-3, 1e-5
+
+
+@pytest.fixture(scope="module")
+def setup():
+    ref_cfg = dataclasses.replace(ref_get_config("resnet18-cifar").reduced(),
+                                  dtype="float32", image_size=8,
+                                  cnn_width=WIDTH)
+    cfg = dataclasses.replace(get_config("resnet18-cifar").reduced(),
+                              dtype="float32", image_size=8, cnn_width=WIDTH)
+    data = ref_datasets(jax.random.PRNGKey(0), M, samples_per_class=20,
+                        image_size=8)
+    ref_train = {"images": data["train_x"], "labels": data["train_y"]}
+    train = {k: to_torch(v) for k, v in ref_train.items()}
+    return ref_cfg, cfg, ref_train, train
+
+
+def _assert_tree_close(got, want, what):
+    """rtol 2e-3, with an absolute floor of 2e-3 × max |leaf|: entries
+    near zero (fresh GroupNorm biases) carry the same absolute f32
+    rounding as the leaf's large ones."""
+    g = jax.tree_util.tree_leaves(got)
+    w = jax.tree_util.tree_leaves(to_numpy(want))
+    assert len(g) == len(w), what
+    for a, b in zip(g, w):
+        scale = float(np.abs(b).max())
+        np.testing.assert_allclose(a, b, rtol=RTOL,
+                                   atol=max(ATOL, RTOL * scale),
+                                   err_msg=what)
+
+
+def _selection_margin(state, active, cfg_fl):
+    """Smallest gap between the k-th and (k+1)-th Eq. 9 score of the
+    selecting rows, from the pre-round headers/recency and the round's
+    fresh loss rows (dense plain version)."""
+    s, _ = select_score_ref(flatten_headers(state["header"]),
+                            state["last_selected"], state["loss_matrix"],
+                            state["round"], cfg_fl.comm_cost,
+                            alpha=cfg_fl.alpha, lam=cfg_fl.recency_lambda)
+    srt = torch.sort(s[active], dim=1, descending=True).values
+    return float((srt[:, K - 1] - srt[:, K]).min())
+
+
+@pytest.mark.parametrize("name", ["pfeddst", "pfeddst_random"])
+def test_two_rounds_match_reference(setup, name):
+    ref_cfg, cfg, ref_train, train = setup
+    selection = "random" if name == "pfeddst_random" else "topk"
+    rfl = RefFLConfig(comms=None, selection=selection, **FL_KW)
+    fl = FLConfig(selection=selection, **FL_KW)
+    ropt = ref_sgd(rfl.lr, momentum=rfl.momentum,
+                   weight_decay=rfl.weight_decay)
+    rstages = ref_stages(ref_cfg, rfl, ref_phase_steps(ref_cfg, ropt),
+                         steps_per_epoch=1, probe_size=PROBE,
+                         use_score_kernel=True)
+    ref_round = jax.jit(lambda st, k: ref_run_round(
+        rstages, st, ref_train, k, m=M, ratio=rfl.client_sample_ratio,
+        key_streams=REF_STREAMS))
+    opt = sgd(fl.lr, momentum=fl.momentum, weight_decay=fl.weight_decay)
+    stages = make_pfeddst_stages(cfg, fl, make_phase_steps(cfg, opt),
+                                 steps_per_epoch=1, probe_size=PROBE,
+                                 use_score_kernel=True)
+
+    rstate = ref_init_population(ref_cfg, jax.random.PRNGKey(1), M, ropt,
+                                 ropt)
+    state = convert.population_from_reference(to_numpy(rstate),
+                                              device="cpu")
+    for r in range(2):
+        key = jax.random.fold_in(jax.random.PRNGKey(2), r)
+        draws = reference_draws(key, m=M, ratio=0.5,
+                                n_local=ref_train["images"].shape[1],
+                                probe_size=PROBE, batch_size=BATCH, n_e=1,
+                                n_h=1)
+        before = state
+        rstate, rmet = ref_round(rstate, key)
+        state, met = run_round(stages, state, train, (0, r), m=M, ratio=0.5,
+                               key_streams=PFEDDST_STREAMS, draws=draws)
+        active = met["active"]
+        np.testing.assert_array_equal(active.numpy(),
+                                      np.asarray(rmet["active"]))
+        if name == "pfeddst":
+            margin = _selection_margin(
+                {"header": before.header,
+                 "last_selected": before.last_selected,
+                 "loss_matrix": state.loss_matrix, "round": before.round},
+                active, fl)
+            assert margin > 1e-4, f"round {r}: near-tied scores ({margin})"
+        np.testing.assert_array_equal(met["select_mask"].numpy(),
+                                      np.asarray(rmet["select_mask"]))
+        got = convert.population_to_reference(state)
+        np.testing.assert_array_equal(got["last_selected"],
+                                      np.asarray(rstate.last_selected))
+        assert int(got["round"]) == int(rstate.round) == r + 1
+        np.testing.assert_allclose(got["loss_matrix"],
+                                   np.asarray(rstate.loss_matrix),
+                                   rtol=RTOL, atol=ATOL)
+        for field in ("extractor", "header"):
+            _assert_tree_close(got[field], getattr(rstate, field), field)
+        for field in ("opt_e", "opt_h"):
+            _assert_tree_close(got[field]["mu"], getattr(rstate, field)["mu"],
+                               field)
+        scalars = {k: v for k, v in rmet.items() if np.ndim(v) == 0}
+        assert set(scalars) == {k for k, v in met.items() if v.dim() == 0}
+        for k, v in scalars.items():
+            np.testing.assert_allclose(float(met[k]), float(v), rtol=RTOL,
+                                       atol=ATOL, err_msg=k)
+
+
+def test_run_experiment_history_schema_on_cpu(setup):
+    """The port's simulator runs both strategies end to end and reports
+    the reference's History schema, comm fields zero (no fabric)."""
+    _, cfg, _, _ = setup
+    from repro_torch.data.synthetic import client_datasets_cifar
+
+    data = client_datasets_cifar(0, M, samples_per_class=20, image_size=8)
+    fl = FLConfig(**FL_KW)
+    for name in ("pfeddst", "pfeddst_random"):
+        hist = run_experiment(name, cfg, fl, data, num_rounds=2,
+                              eval_every=1, steps_per_epoch=1, verbose=False,
+                              device="cpu").to_dict()
+        assert hist["rounds"] == [1, 2]
+        assert all(np.isfinite(hist["accuracy"]))
+        assert hist["comm_bytes"] == [0, 0] and hist["round_bytes"] == [0, 0]
+        assert set(hist["extra"]) >= {"train_loss_e", "train_loss_h",
+                                      "mean_selected_score",
+                                      "sel_s_d_mean"}
+
+
+def _entry_points(cfg):
+    """Each public entry point, called without device=."""
+    from repro_torch.core.client_state import init_population
+    from repro_torch.data.synthetic import client_datasets_cifar
+    from repro_torch.fl.strategies import make_strategy
+
+    fl = FLConfig(**FL_KW)
+    data = client_datasets_cifar(0, M, samples_per_class=20, image_size=8)
+    opt = sgd(fl.lr, momentum=fl.momentum, weight_decay=fl.weight_decay)
+    state = convert.population_to_reference(init_population(
+        cfg, torch.Generator().manual_seed(0), M, opt, opt, "cpu"))
+    return {
+        "run_experiment": lambda: run_experiment("pfeddst", cfg, fl, data,
+                                                 num_rounds=1),
+        "make_strategy": lambda: make_strategy("pfeddst", cfg, fl),
+        "params_from_reference": lambda: convert.params_from_reference(
+            state["header"]),
+        "population_from_reference": lambda: (
+            convert.population_from_reference(state)),
+    }
+
+
+@pytest.mark.parametrize("entry", ["run_experiment", "make_strategy",
+                                   "params_from_reference",
+                                   "population_from_reference"])
+def test_entry_point_without_device_needs_cuda(setup, monkeypatch, entry):
+    """Called without device=, the port asks for CUDA and raises where
+    there is none, instead of running on the CPU."""
+    _, cfg, _, _ = setup
+    call = _entry_points(cfg)[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        call()
+
+
+def test_unported_options_raise():
+    from repro_torch.fl.strategies import make_strategy
+
+    cfg = get_config("resnet18-cifar").reduced()
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        make_strategy("fedavg", cfg, FLConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        make_pfeddst_stages(cfg, FLConfig(), None, hetero=object())
+
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _port_sources():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_nothing_of_the_reference(path):
+    """The port and chip_smoke.py import torch/numpy, never jax and
+    nothing of `repro` (other than `repro_torch`)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, n)
