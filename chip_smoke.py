@@ -8,26 +8,44 @@ Phases, each of which fails the script (non-zero exit) on any fault:
 1. build    nvcc builds the port's CUDA kernels from `src/repro_torch/csrc`
             for sm_90a (timed); TF32 is switched off for matmuls and cuDNN.
 2. kernels  each kernel against its plain PyTorch version on the card, at
-            the PFedDST round's shapes (M=16 clients, P=5130 header
-            elements, k=4) and at population scale (M=1024, 4096; k=10),
-            with scalar and matrix Eq. 9 cost and a candidate mask.
-            select_topk: indices exact (a flip is allowed only between
-            scores within 1e-5 relative, and is counted), values rtol 1e-4,
-            row stats rtol 1e-4 + atol 1e-6·M (sums of M cosines).
+            the rounds' shapes and at population scale. Times by CUDA
+            events after warm-up.
+            select_topk (M=16, P=5130 header elements, k=4; M=1024, 4096,
+            k=10; scalar and matrix Eq. 9 cost, a candidate mask): indices
+            exact (a flip is allowed only between scores within 1e-5
+            relative, and is counted), values rtol 1e-4, row stats rtol
+            1e-4 + atol 1e-6·M (sums of M cosines).
             raw_gram: error ≤ 1e-4 × the largest entry (fp32 sums of P
-            products in another order). Times by CUDA events after warm-up.
-3. path     `run_experiment("pfeddst")` and `run_experiment("pfeddst_random")`
-            with use_score_kernel=True on full-width ResNet-18 in bf16 at the
-            paper-scale settings of examples/fl_cifar_sim.py (M=16, 4 peers,
-            batch 128, ratio 0.25, probe 16, 32×32 images, 120 samples per
-            class, 2 steps per epoch), 3 rounds each. Launch counters are set
-            to 0 just before and read just after; both kernels must have run.
-            Losses must be finite and every active client must select
-            exactly k peers.
-4. agree    the same two strategies at a small f32 size on the card and on
-            the CPU (plain versions, the path the CPU tests hold to the JAX
-            reference) from the same parameters and draws: selection masks
-            exact, loss matrices rtol 1e-3.
+            products in another order).
+            gossip_mix (a dfedpgp plan at M=16, F=11,167,040 — the
+            ResNet-18 extractor — D=5; M=1024, F=65,536, D=11): bitwise.
+            mask_evolve (the dispfl round's largest and smallest stacked
+            leaves, 16×2,359,296 and 16×10 in bf16, and 16×64; keep = n/2,
+            regrow 0.02): threshold, mask and output bits equal.
+3. path     `run_experiment` for every ported strategy on full-width
+            ResNet-18 in bf16 at the paper-scale settings of
+            examples/fl_cifar_sim.py (M=16, 4 peers, batch 128, ratio 0.25,
+            probe 16, 32×32 images, 120 samples per class, 2 steps per
+            epoch, K_e=5): pfeddst (use_score_kernel=True), pfeddst_random,
+            dfedpgp and dispfl 3 rounds each; dfedavgm, fedavg, fedper and
+            fedbabu 2 rounds each. The six baselines run at lr 0.01, not
+            the paper's 0.1: there their full-model SGD step diverges to
+            NaN within a round, in the JAX reference too. Launch counters are set to 0 just before
+            each run and read after each of its rounds: select_topk must
+            run in every pfeddst round, raw_gram in every pfeddst_random
+            round, gossip_mix in every dfedpgp round and mask_evolve once
+            per parameter leaf (56) in every dispfl round. Losses and
+            accuracy must be finite; every active client must select
+            exactly k peers (pfeddst, dfedpgp) or at least k (the
+            undirected plans), inactive ones none.
+4. agree    at a small f32 size, the card against the CPU (plain versions,
+            the path the CPU tests hold to the JAX reference) from the same
+            parameters and draws: pfeddst and pfeddst_random selection
+            masks exact, loss matrices rtol 1e-3; dfedpgp (packed kernel mix
+            on the card, dense mix on the CPU) edges exact, params rtol
+            1e-3; dispfl edges exact, masks exact apart from counted
+            entries within rtol 2e-3 of their leaf's threshold, the other
+            params rtol 1e-3.
 5. profile  one more pfeddst round under torch.profiler; the top CUDA
             kernels by time go to chiprun_out/chip_smoke_profile.txt.
 
@@ -50,6 +68,7 @@ OUT_DIR = ROOT / "chiprun_out"
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+BASELINE_LR = 0.01   # the six baselines' SGD rate in phase 3 (see there)
 
 
 def card_line() -> str:
@@ -167,46 +186,172 @@ def check_gram(ops, m, p, seed, dev, iters):
                 library_ms=library_ms)
 
 
+def gossip_case(m, f, k, n_active, seed, dev):
+    """A dfedpgp-shaped plan: directed k-peer picks of `n_active` sampled
+    clients, the others keep themselves; packed lists (D = k + 1)."""
+    import torch
+
+    from repro_torch.core.aggregation import selection_to_weights
+    from repro_torch.fl.engine import gossip_edges
+    from repro_torch.kernels.gossip_mix import (gossip_degree_bound,
+                                                weights_to_neighbors)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    active = torch.zeros(m, dtype=torch.bool, device=dev)
+    active[torch.randperm(m, generator=g, device=dev)[:n_active]] = True
+    nbr = gossip_edges(torch.rand((m, m), generator=g, device=dev), k,
+                       directed=True) & active[:, None]
+    w = selection_to_weights(nbr, include_self=True)
+    idx, wl = weights_to_neighbors(w, gossip_degree_bound(k, m,
+                                                          directed=True))
+    return torch.randn((m, f), generator=g, device=dev), idx, wl
+
+
+def check_gossip(ops, ref, case, iters, plain_iters):
+    import torch
+
+    x, idx, w = case
+    m, f = x.shape
+    got = ops.gossip_mix(x, idx, w, impl="cuda")
+    want = ops.gossip_mix(x, idx, w, impl="plain")
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(
+            f"gossip_mix M={m} F={f}: {int((got != want).sum())} entries "
+            "differ from the plain version (bitwise)")
+    err = float((got - want).abs().max())
+    dense = ref.neighbors_to_dense(idx, w, m)
+    ms = time_ms(lambda: ops.gossip_mix(x, idx, w, impl="cuda"), iters)
+    plain_ms = time_ms(lambda: ops.gossip_mix(x, idx, w, impl="plain"),
+                       plain_iters)
+    library_ms = time_ms(lambda: torch.matmul(dense, x), iters)
+    # the x rows the lists name with a nonzero weight, the lists, the output
+    live = w != 0
+    rows = int(torch.unique(idx[live]).numel())
+    b_ms, b_by = bound(rows * f * 4 + idx.numel() * 8 + m * f * 4,
+                       2.0 * int(live.sum()) * f)
+    return dict(m=m, f=f, d=idx.shape[1], nonzero=int(live.sum()),
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+
+
+def check_evolve(me, shape, dtype, seed, dev, iters):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=dev) * 0.05).to(dtype)
+    grow = torch.rand(shape, generator=g, device=dev) > 0.98
+    n = x.numel()
+    keep = max(int(n * 0.5), 1)
+    out, mask, thr = me.mask_evolve_cuda(x, grow, keep=keep)
+    p_out, p_mask, p_thr = me.mask_evolve_plain(x, grow, keep=keep)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for what, ok in (
+            ("threshold", torch.equal(thr.view(torch.int32),
+                                      p_thr.view(torch.int32))),
+            ("mask", torch.equal(mask, p_mask)),
+            ("output", torch.equal(out.view(bits), p_out.view(bits)))):
+        if not ok:
+            raise AssertionError(f"mask_evolve {tuple(shape)} {dtype}: "
+                                 f"{what} differs from the plain version")
+    err = float((out.float() - p_out.float()).abs().max())
+
+    def library():
+        t = torch.kthvalue(x.float().abs().reshape(-1), n - keep + 1).values
+        mk = (x.float().abs() >= t) | grow
+        return x * mk.to(x.dtype), mk
+
+    ms = time_ms(lambda: me.mask_evolve_cuda(x, grow, keep=keep), iters)
+    plain_ms = time_ms(lambda: me.mask_evolve_plain(x, grow, keep=keep),
+                       iters)
+    library_ms = time_ms(library, iters)
+    # x and grow read once, out and mask written once; the work is a
+    # comparison and a product per element
+    b_ms, b_by = bound(n * (2 * x.element_size() + 2), 2.0 * n)
+    return dict(shape=list(shape), dtype=str(dtype).split(".")[-1], n=n,
+                keep=keep, thr=float(thr), kept=int(mask.sum()),
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the port's main path
 # ---------------------------------------------------------------------------
 
-def run_path(name, cfg, fl, data, rounds, dev, run_experiment):
-    edge_checks = []
+# the kernel each path must launch, and how often per round at least
+PATH_KERNELS = {"pfeddst": "select_topk", "pfeddst_random": "raw_gram",
+                "dfedpgp": "gossip_mix", "dispfl": "mask_evolve"}
+
+
+def check_edges(name, met, k, n_active):
+    """The round's plan: k picks per active row (pfeddst, dfedpgp), at
+    least k for the undirected plans, none for inactive rows, no self;
+    the star plans carry the sampled clients only."""
+    active = met["active"]
+    if int(active.sum()) != n_active:
+        raise AssertionError(f"{name}: {int(active.sum())} active clients, "
+                             f"expected {n_active}")
+    if name in ("fedavg", "fedper", "fedbabu"):
+        if "comm_edges" in met:
+            raise AssertionError(f"{name}: a star round reported edges")
+        return 0
+    mask = met["select_mask" if name.startswith("pfeddst") else "comm_edges"]
+    per_row = mask.sum(dim=1)
+    exact = name in ("pfeddst", "pfeddst_random", "dfedpgp")
+    ok = bool((per_row[active] == k).all() if exact
+              else (per_row[active] >= k).all())
+    if not ok or bool((per_row[~active] != 0).any()) or \
+            bool(mask.diagonal().any()):
+        raise AssertionError(f"{name}: edges per row {per_row.tolist()} "
+                             f"(active {active.tolist()}, k={k})")
+    return int(mask.sum())
+
+
+def run_path(name, cfg, fl, data, rounds, dev, run_experiment, ops,
+             min_launches):
+    """One strategy's run; the launch counters are set to 0 just before
+    it and read after each of its rounds."""
+    k = min(fl.peers_per_round, fl.num_clients - 1)
+    n_active = max(1, int(round(fl.num_clients * fl.client_sample_ratio)))
+    edges, counts = [], []
 
     def on_round(r, met):
-        mask, active = met["select_mask"], met["active"]
-        k = min(fl.peers_per_round, fl.num_clients - 1)
-        per_row = mask.sum(dim=1)
-        ok = bool((per_row[active] == k).all()) and \
-            bool((per_row[~active] == 0).all()) and \
-            not bool(mask.diagonal().any())
-        edge_checks.append((int(mask.sum()), int(active.sum()) * k, ok))
+        counts.append(ops.launch_counts())
+        edges.append(check_edges(name, met, k, n_active))
 
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     hist = run_experiment(name, cfg, fl, data, num_rounds=rounds,
                           eval_every=1, steps_per_epoch=2, seed=0,
                           verbose=False, device=dev, on_round=on_round)
     total = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    kernel = PATH_KERNELS.get(name)
+    if kernel is not None:
+        per_round = [b[kernel] - a[kernel]
+                     for a, b in zip([{kernel: 0}] + counts, counts)]
+        if min(per_round) < min_launches.get(kernel, 1):
+            raise AssertionError(f"{name}: {kernel} launches per round "
+                                 f"{per_round}, expected at least "
+                                 f"{min_launches.get(kernel, 1)}")
     h = hist.to_dict()
     # round 0's wall is compile_s; wall_s is the cumulative steady wall
     # after each round (eval_every=1), 0 after round 0
     steady = h["wall_s"]
     walls = [h["compile_s"]] + [b - a for a, b in zip(steady, steady[1:])]
-    for key in ("train_loss_e", "train_loss_h", "s_l_mean",
-                "mean_selected_score"):
+    loss_keys = (("train_loss_e", "train_loss_h", "s_l_mean",
+                  "mean_selected_score") if name.startswith("pfeddst")
+                 else ("train_loss",))
+    for key in loss_keys:
         vals = h["extra"][key]
         if len(vals) != rounds or not all(math.isfinite(v) for v in vals):
             raise AssertionError(f"{name}: {key} not finite: {vals}")
     if not all(math.isfinite(a) for a in h["accuracy"]):
         raise AssertionError(f"{name}: accuracy not finite")
-    for got, want, ok in edge_checks:
-        if not ok or got != want:
-            raise AssertionError(f"{name}: {got} selected edges, expected "
-                                 f"{want} (k per active row, none else)")
     return dict(name=name, round_walls_s=walls, total_s=total,
-                accuracy=h["accuracy"], edges=[e[0] for e in edge_checks],
-                train_loss_e=h["extra"]["train_loss_e"])
+                accuracy=h["accuracy"], edges=edges, launches=launches,
+                **{key: h["extra"][key] for key in loss_keys[:1]})
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +411,93 @@ def check_agreement(dev):
     return worst
 
 
+def check_baseline_agreement(dev):
+    """dfedpgp and dispfl rounds on the card and on the CPU from the same
+    state and draws (dispfl's regrow planes drawn on the CPU and injected
+    into both). dispfl runs each round in two parts, the second from the
+    mask evolution on, to read the parameters the masks evolve from."""
+    import torch
+
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.data.synthetic import client_datasets_cifar
+    from repro_torch.fl.engine import run_round
+    from repro_torch.fl.strategies import make_strategy
+    from repro_torch.kernels.mask_evolve import magnitude_threshold_plain
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = dataclasses.replace(get_config("resnet18-cifar").reduced(),
+                              dtype="float32", image_size=8, cnn_width=32)
+    data = client_datasets_cifar(1, 6, samples_per_class=20, image_size=8)
+    train = {"images": data["train_x"], "labels": data["train_y"]}
+    gpu_train = {k: v.to(dev) for k, v in train.items()}
+    fl = FLConfig(num_clients=6, peers_per_round=2, batch_size=8,
+                  client_sample_ratio=0.5, epochs_extractor=1,
+                  epochs_header=1)
+
+    def to_card(state):
+        return tree_map(lambda t: t.to(dev) if t.dim() else t, state)
+
+    def run(strat, stages, state, train, r, draws):
+        return run_round(stages, state, train, (7, r), m=6, ratio=0.5,
+                         key_streams=strat.key_streams, draws=draws)
+
+    out = {}
+    for name in ("dfedpgp", "dispfl"):
+        strat = make_strategy(name, cfg, fl, 1, device="cpu")
+        split = len(strat.stages) - 2 if name == "dispfl" else \
+            len(strat.stages)
+        cpu_state = strat.init(3)
+        gpu_state = to_card(cpu_state)
+        worst, flips = 0.0, 0
+        for r in range(2):
+            draws = {}
+            if name == "dispfl":
+                g = torch.Generator().manual_seed(100 + r)
+                draws["grow"] = {
+                    n: torch.rand(p.shape, generator=g)
+                    > 1.0 - fl.dispfl_regrow
+                    for n, p in cpu_state["params"].items()}
+            cpu_mid, cm = run(strat, strat.stages[:split], cpu_state, train,
+                              r, draws)
+            gpu_mid, gm_ = run(strat, strat.stages[:split], gpu_state,
+                               gpu_train, r, draws)
+            cpu_state, _ = run(strat, strat.stages[split:], cpu_mid, train,
+                               r, draws)
+            gpu_state, _ = run(strat, strat.stages[split:], gpu_mid,
+                               gpu_train, r, draws)
+            if not torch.equal(cm["comm_edges"], gm_["comm_edges"].cpu()):
+                raise AssertionError(f"{name} round {r}: edges differ "
+                                     "between card and CPU")
+            round_flips = 0
+            for n, want in cpu_state["params"].items():
+                got = gpu_state["params"][n].cpu()
+                keep = torch.ones_like(want, dtype=torch.bool)
+                if name == "dispfl":
+                    flip = gpu_state["mask"][n].cpu() != cpu_state["mask"][n]
+                    if flip.any():
+                        x = cpu_mid["params"][n]
+                        n_keep = max(int(x.numel() * 0.5), 1)
+                        thr = float(magnitude_threshold_plain(
+                            x, x.numel() - n_keep))
+                        near = (x[flip].abs() - thr).abs() <= 2e-3 * thr
+                        if not bool(near.all()):
+                            raise AssertionError(
+                                f"dispfl round {r} {n}: masks differ away "
+                                f"from the threshold {thr}")
+                        round_flips += int(flip.sum())
+                        keep = ~flip
+                scale = float(want.abs().max())
+                torch.testing.assert_close(got[keep], want[keep], rtol=1e-3,
+                                           atol=max(1e-5, 1e-3 * scale))
+                worst = max(worst, float((got[keep] - want[keep]).abs().max())
+                            / max(scale, 1e-30))
+            flips += round_flips
+            if round_flips:
+                gpu_state = to_card(cpu_state)   # start round 2 level
+        out[name] = dict(max_rel_param_diff=worst, mask_flips=flips)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -286,6 +518,8 @@ def main() -> int:
     from repro_torch.data.synthetic import client_datasets_cifar
     from repro_torch.fl.simulator import run_experiment
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import mask_evolve as me
+    from repro_torch.models import model as model_mod
 
     dev = torch.device("cuda", 0)
     print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
@@ -331,6 +565,19 @@ def main() -> int:
         print("raw_gram", json.dumps(row), flush=True)
     print("select_topk near-tie index flips:",
           sum(r["flips"] for r in main_sel + scale_sel), flush=True)
+    extractor_f = 11_167_040   # ResNet-18 extractor: all leaves but head
+    mixes = [check_gossip(ops, ref, gossip_case(16, extractor_f, 4, 4, 8,
+                                                dev), 20, 3),
+             check_gossip(ops, ref, gossip_case(1024, 65_536, 10, 1024, 9,
+                                                dev), 10, 3)]
+    evolves = [check_evolve(me, (16, 512, 512, 3, 3), torch.bfloat16, 10,
+                            dev, 10),
+               check_evolve(me, (16, 10), torch.bfloat16, 11, dev, 50),
+               check_evolve(me, (16, 64), torch.bfloat16, 12, dev, 50)]
+    for row in mixes:
+        print("gossip_mix", json.dumps(row), flush=True)
+    for row in evolves:
+        print("mask_evolve", json.dumps(row), flush=True)
 
     # ---- 3. the main path ---------------------------------------------------
     cfg = get_config("resnet18-cifar")             # full width, bf16
@@ -340,18 +587,24 @@ def main() -> int:
     data = client_datasets_cifar(0, fl.num_clients,
                                  classes_per_client=fl.classes_per_client,
                                  samples_per_class=120, image_size=32)
-    ops.reset_launch_counts()
-    paths = [run_path("pfeddst", cfg, fl, data, 3, dev, run_experiment)]
-    after_pfeddst = ops.launch_counts()
-    paths.append(run_path("pfeddst_random", cfg, fl, data, 3, dev,
-                          run_experiment))
-    launches = ops.launch_counts()
-    print("launches:", json.dumps(launches),
-          "after pfeddst:", json.dumps(after_pfeddst), flush=True)
-    if after_pfeddst["select_topk"] < 1:
-        raise AssertionError("pfeddst did not launch select_topk")
-    if launches["raw_gram"] - after_pfeddst["raw_gram"] < 1:
-        raise AssertionError("pfeddst_random did not launch raw_gram")
+    n_leaves = len(model_mod.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    min_launches = {"mask_evolve": n_leaves}
+    # the baselines at lr 0.01: at the paper's 0.1 their full-model SGD
+    # step diverges to NaN within a round, in the JAX reference as well
+    # (ROADMAP queue 3)
+    fl_base = dataclasses.replace(fl, lr=BASELINE_LR)
+    paths = [run_path(name, cfg, fl if name.startswith("pfeddst")
+                      else fl_base, data, rounds, dev, run_experiment, ops,
+                      min_launches)
+             for name, rounds in (("pfeddst", 3), ("pfeddst_random", 3),
+                                  ("dfedpgp", 3), ("dispfl", 3),
+                                  ("dfedavgm", 2), ("fedavg", 2),
+                                  ("fedper", 2), ("fedbabu", 2))]
+    launches = {PATH_KERNELS[r["name"]]: r["launches"][PATH_KERNELS[r["name"]]]
+                for r in paths if r["name"] in PATH_KERNELS}
+    print("launches (each kernel in its path's run):", json.dumps(launches),
+          flush=True)
     for run in paths:
         print("path", json.dumps(run), flush=True)
 
@@ -359,6 +612,9 @@ def main() -> int:
     agree = check_agreement(dev)
     print("agree: masks exact, loss_matrix max abs diff", json.dumps(agree),
           flush=True)
+    agree_base = check_baseline_agreement(dev)
+    print("agree: dfedpgp/dispfl edges exact, params within rtol 1e-3",
+          json.dumps(agree_base), flush=True)
 
     # ---- 5. profile one steady pfeddst round --------------------------------
     from torch.autograd import DeviceType
@@ -416,6 +672,23 @@ def main() -> int:
          "ms": g_main["ms"], "plain_ms": g_main["plain_ms"],
          "bound_ms": g_main["bound_ms"], "bound_by": g_main["bound_by"],
          "library_ms": g_main["library_ms"]},
+        {"name": "gossip_mix", "route": "cuda",
+         "source": "src/repro_torch/csrc/gossip_mix.cu",
+         "replaces": "src/repro/kernels/gossip_mix.py:96",
+         "launches": launches["gossip_mix"],
+         "max_abs_err": mixes[0]["max_abs_err"],
+         "ms": mixes[0]["ms"], "plain_ms": mixes[0]["plain_ms"],
+         "bound_ms": mixes[0]["bound_ms"], "bound_by": mixes[0]["bound_by"],
+         "library_ms": mixes[0]["library_ms"]},
+        {"name": "mask_evolve", "route": "cuda",
+         "source": "src/repro_torch/csrc/mask_evolve.cu",
+         "replaces": "src/repro/kernels/mask_evolve.py:110",
+         "launches": launches["mask_evolve"],
+         "max_abs_err": max(r["max_abs_err"] for r in evolves),
+         "ms": evolves[0]["ms"], "plain_ms": evolves[0]["plain_ms"],
+         "bound_ms": evolves[0]["bound_ms"],
+         "bound_by": evolves[0]["bound_by"],
+         "library_ms": evolves[0]["library_ms"]},
     ]
     print("round walls (s):", json.dumps(
         {r["name"]: r["round_walls_s"] for r in paths}), flush=True)

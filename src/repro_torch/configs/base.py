@@ -1,5 +1,6 @@
 """Model/run configuration dataclasses — the port's own copy of
-`repro.configs.base`, trimmed to the fields the PFedDST round reads.
+`repro.configs.base`, trimmed to the fields the PFedDST round and the
+paper's baselines read.
 
 `ModelConfig` keeps the CNN family only (the paper's ResNet-18/CIFAR);
 `FLConfig` keeps the Section III protocol. The reference's network
@@ -55,4 +56,7 @@ class FLConfig:
     # random selection)
     use_score_kernel: bool = False
     probe_size: int = 32               # per-client probe batch for s_l (Eq. 6)
+    # Dis-PFL baseline (fl/strategies dispfl spec)
+    dispfl_sparsity: float = 0.5       # personal-mask sparsity
+    dispfl_regrow: float = 0.02        # RigL-style random regrow rate/round
     classes_per_client: int = 2        # pathological partition

@@ -5,7 +5,8 @@ of stages of blocks) with HWIO conv weights; the port keeps a flat dict
 of dotted names with OIHW conv weights. These functions convert numpy
 trees (the reference's arrays after `np.asarray`) to the port's tensors
 and back, so a test can feed both packages the same state and compare in
-the reference's layout. Leaves may carry leading axes (a stacked
+the reference's layout: the PFedDST PopulationState, and the baselines'
+dict states (params, optimizer state, round, dispfl's masks). Leaves may carry leading axes (a stacked
 population): only the last four axes of a conv weight are transposed.
 """
 from __future__ import annotations
@@ -100,6 +101,11 @@ def _opt_from_reference(opt, device):
                 device)}
 
 
+def _opt_to_reference(opt):
+    return {"mu": params_to_reference(opt["mu"]),
+            "count": opt["count"].cpu().numpy()}
+
+
 def population_from_reference(state_np, device="cuda") -> PopulationState:
     """A reference PopulationState whose leaves are numpy arrays (fields
     by attribute or key) → the port's PopulationState on `device`,
@@ -124,16 +130,42 @@ def population_from_reference(state_np, device="cuda") -> PopulationState:
 def population_to_reference(state: PopulationState) -> dict:
     """The port's PopulationState → a dict of the reference's fields as
     numpy trees (reference layout)."""
-    def opt(o):
-        return {"mu": params_to_reference(o["mu"]),
-                "count": o["count"].cpu().numpy()}
-
     return {
         "extractor": params_to_reference(state.extractor),
         "header": params_to_reference(state.header),
-        "opt_e": opt(state.opt_e),
-        "opt_h": opt(state.opt_h),
+        "opt_e": _opt_to_reference(state.opt_e),
+        "opt_h": _opt_to_reference(state.opt_h),
         "loss_matrix": state.loss_matrix.cpu().numpy(),
         "last_selected": state.last_selected.cpu().numpy(),
         "round": state.round.cpu().numpy(),
     }
+
+
+def baseline_state_from_reference(state_np: dict, device="cuda") -> dict:
+    """A reference baseline state of numpy arrays — {"params", "opt"
+    ({"mu", "count"}, or {"e": ...} for fedbabu), "round"[, "mask"]} —
+    → the port's dict state on `device` (masks transposed like the conv
+    weights they cover); raises if `device` names CUDA and there is
+    none."""
+    device = resolve_device(device)
+    opt = state_np["opt"]
+    out = {"params": params_from_reference(state_np["params"], device),
+           "opt": ({"e": _opt_from_reference(opt["e"], device)}
+                   if "e" in opt else _opt_from_reference(opt, device)),
+           "round": torch.from_numpy(np.array(state_np["round"], np.int32))}
+    if "mask" in state_np:
+        out["mask"] = params_from_reference(state_np["mask"], device)
+    return out
+
+
+def baseline_state_to_reference(state: dict) -> dict:
+    """The port's baseline dict state → the reference's, as numpy trees
+    (reference layout)."""
+    opt = state["opt"]
+    out = {"params": params_to_reference(state["params"]),
+           "opt": ({"e": _opt_to_reference(opt["e"])} if "e" in opt
+                   else _opt_to_reference(opt)),
+           "round": state["round"].cpu().numpy()}
+    if "mask" in state:
+        out["mask"] = params_to_reference(state["mask"])
+    return out

@@ -1,7 +1,9 @@
 """Extractor aggregation across the client axis (Algorithm 1 line 6),
 reference `repro.core.aggregation`:
 
-    e_i ← Σ_{j ∈ M_i ∪ {i}} w_ij · e_j,   w row-stochastic.
+    e_i ← Σ_{j ∈ M_i ∪ {i}} w_ij · e_j,   w row-stochastic,
+
+and the centralized baselines' server mean (`mean_over_active`).
 """
 from __future__ import annotations
 
@@ -26,4 +28,18 @@ def aggregate_extractors(stacked_extractor: dict, weights) -> dict:
     for name, leaf in stacked_extractor.items():
         mixed = wf @ leaf.reshape(leaf.shape[0], -1).float()
         out[name] = mixed.reshape(leaf.shape).to(leaf.dtype)
+    return out
+
+
+def mean_over_active(tree: dict, active) -> dict:
+    """Server step of the FedAvg family: the uniform f32 average of the
+    active clients' leaves, cast back to each leaf's dtype and broadcast
+    to all M rows. All-zero when no client is active; callers guard with
+    `fl.engine.keep_if_none_active`."""
+    w = active.float()
+    w = w / w.sum().clamp_min(1.0)
+    out = {}
+    for name, leaf in tree.items():
+        avg = (w @ leaf.reshape(leaf.shape[0], -1).float()).to(leaf.dtype)
+        out[name] = avg.reshape(leaf.shape[1:]).expand(leaf.shape).clone()
     return out

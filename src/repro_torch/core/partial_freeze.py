@@ -4,6 +4,9 @@
 Phase e: header frozen, extractor trained   (Eq. 3)
 Phase h: extractor frozen, header trained   (Eq. 4)
 
+`make_full_step` is the conventional step of the baselines: the whole
+model trained.
+
 Freezing is structural, as in the reference: the frozen partition enters
 the loss detached, so autograd builds no backward for it, and only the
 trained partition is passed to `torch.autograd.grad`. Each phase keeps
@@ -50,3 +53,14 @@ def make_phase_steps(cfg, opt_e: Optimizer,
         return _train_step(cfg, opt_h, header, extractor, opt_state, batch)
 
     return PhaseSteps(phase_e=phase_e, phase_h=phase_h)
+
+
+def make_full_step(cfg, opt: Optimizer) -> Callable:
+    """One client's conventional (non-frozen) SGD step, the FedAvg-family
+    and gossip baselines' local training: (params, opt_state, batch) ->
+    (params, opt_state, metrics), unstacked parameters."""
+
+    def step(params, opt_state, batch):
+        return _train_step(cfg, opt, params, {}, opt_state, batch)
+
+    return step

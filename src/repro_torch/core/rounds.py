@@ -21,14 +21,13 @@ scalar `fl.comm_cost` and every peer is a candidate.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.core.aggregation import (
     aggregate_extractors,
     selection_to_weights,
 )
-from repro_torch.core.client_state import PopulationState, stack_trees
+from repro_torch.core.client_state import PopulationState
 from repro_torch.core.partial_freeze import PhaseSteps
 from repro_torch.core.scoring import (
     flatten_headers,
@@ -52,19 +51,14 @@ from repro_torch.fl.engine import (
     RoundContext,
     gather_rows,
     run_round,
-    scan_train,
     scatter_rows,
+    train_sampled,
     where_tree,
 )
 from repro_torch.models.split import merge_params
 
 # stream layout of one PFedDST round (the reference's PFEDDST_STREAMS)
 PFEDDST_STREAMS = ("probe", "act", "e", "h", "rand")
-
-
-def _client(tree, i):
-    return {k: (_client(v, i) if isinstance(v, dict) else v[i])
-            for k, v in tree.items()}
 
 
 def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
@@ -115,12 +109,7 @@ def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
             if fl.selection == "threshold":
                 mask = select_peers(scores, threshold=fl.score_threshold)
             elif fl.selection == "random":
-                rand = ctx.draw("rand")
-                if rand is None:
-                    rand = torch.rand((m, m), generator=ctx.streams["rand"])
-                if not isinstance(rand, torch.Tensor):
-                    rand = torch.from_numpy(np.array(rand))
-                rand = rand.to(flat.device, torch.float32)
+                rand = ctx.uniform("rand", (m, m), flat.device)
                 eye = torch.eye(m, dtype=torch.bool, device=flat.device)
                 mask = select_peers(torch.where(eye, -1.0, rand),
                                     k=fl.peers_per_round)
@@ -162,35 +151,15 @@ def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
     def _active_mean(loss_row, active):
         return (loss_row * active).sum() / active.sum().clamp_min(1)
 
-    def _train_subset(ctx, step, trained, frozen, opt_state, stream, n_steps):
-        """Run `step` for n_steps on each sampled client, one client at a
-        time; → (trained, opt_state, losses (n_steps, n)) over the subset."""
-        data_sub = gather_rows(ctx.data, ctx.sampled_idx)
-
-        def apply(carry, batch):
-            tr, os_ = carry
-            outs = [step(_client(tr, i), _client(frozen, i),
-                         _client(os_, i), _client(batch, i))
-                    for i in range(ctx.sampled_idx.shape[0])]
-            return ((stack_trees([o[0] for o in outs]),
-                     stack_trees([o[1] for o in outs])),
-                    torch.stack([o[2]["loss"] for o in outs]))
-
-        (new, opt), losses = scan_train(
-            apply, (trained, opt_state), data_sub, ctx.streams[stream],
-            n_steps, fl.batch_size, rows=ctx.sampled_idx.cpu(), total=ctx.m,
-            idx=ctx.draw(stream))
-        return new, opt, losses
-
     def phase_e(state: PopulationState, ctx: RoundContext):
         # ---- 4. phase-e (header frozen) -----------------------------------
         idx = ctx.sampled_idx
         agg_sub, h_sub, oe_sub, e_sub = gather_rows(
             (ctx.aux["agg_e"], state.header, state.opt_e, state.extractor),
             idx)
-        new_e, opt_e, loss_e = _train_subset(
+        new_e, opt_e, loss_e = train_sampled(
             ctx, steps.phase_e, agg_sub, h_sub, oe_sub, "e",
-            fl.epochs_extractor * steps_per_epoch)
+            fl.epochs_extractor * steps_per_epoch, fl.batch_size)
         act_sub = ctx.active[idx]
         new_e = scatter_rows(state.extractor, idx,
                              where_tree(act_sub, new_e, e_sub))
@@ -210,9 +179,9 @@ def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
         def step(h, e, o, batch):
             return steps.phase_h(e, h, o, batch)
 
-        new_h, opt_h, loss_h = _train_subset(
+        new_h, opt_h, loss_h = train_sampled(
             ctx, step, h_sub, e_sub, oh_sub, "h",
-            fl.epochs_header * steps_per_epoch)
+            fl.epochs_header * steps_per_epoch, fl.batch_size)
         act_sub = ctx.active[idx]
         new_h = scatter_rows(state.header, idx,
                              where_tree(act_sub, new_h, h_sub))

@@ -3,7 +3,9 @@ of reference `repro.fl.engine`.
 
 A round is an ordered tuple of stages `(state, ctx) -> state` run by
 `run_round`, which owns participation (client sampling), the named
-random streams and the metrics contract (`active`, `comm_edges`).
+random streams and the metrics contract (`active`, `comm_edges`). The
+stage library below (plans, training, server averaging, gossip mixing)
+is what the baselines of `fl.strategies` compose.
 
 Randomness: `named_streams` turns a round key (a tuple of ints, e.g.
 `(seed, round)`) into one CPU `torch.Generator` per named stream, in the
@@ -16,8 +18,13 @@ keyed by stream name, replaces that stream's choices —
     "e"      (n_e, n, B)     phase-e batch indices, sampled rows in order
     "h"      (n_h, n, B)     phase-h batch indices
     "rand"   (M, M)          the pfeddst_random uniform plane
+    "train"  (n_steps, n, B) baseline local-training batch indices
+    "nbr"    (M, M)          the gossip plans' uniform plane
+    "grow"   {leaf: bool}    dispfl's regrow planes, by the port's leaf name
 
-— through which the parity tests inject the reference's draws.
+— through which the parity tests inject the reference's draws. The
+regrow planes are as large as the model, so without injection they are
+drawn on the data's device (`device_generator`), not on the CPU.
 """
 from __future__ import annotations
 
@@ -27,11 +34,25 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.aggregation import (
+    aggregate_extractors,
+    mean_over_active,
+    selection_to_weights,
+)
+from repro_torch.core.client_state import stack_trees
+from repro_torch.core.partial_freeze import make_full_step
+from repro_torch.core.selection import select_peers
 from repro_torch.data.pipeline import (
     as_index_tensor,
     sample_client_indices,
     take_client_batches,
 )
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.gossip_mix import (
+    gossip_degree_bound,
+    weights_to_neighbors,
+)
+from repro_torch.models.split import merge_params, split_params
 from repro_torch.utils.pytree import tree_map
 
 
@@ -43,6 +64,13 @@ def named_streams(key, streams: tuple) -> dict:
         seed = np.random.SeedSequence([*key, i]).generate_state(1, np.uint64)
         out[name] = torch.Generator().manual_seed(int(seed[0]))
     return out
+
+
+def device_generator(generator: torch.Generator, device) -> torch.Generator:
+    """A generator on `device` seeded by one draw of `generator` (for
+    planes too large to draw on the CPU)."""
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def sample_participants(generator: torch.Generator, m: int, ratio: float,
@@ -76,6 +104,13 @@ def gather_rows(tree, idx):
     return tree_map(lambda x: x[idx], tree)
 
 
+def keep_if_none_active(active, new, old):
+    """`old` where no client is active this round (stops an all-zero
+    server average from being broadcast), `new` otherwise."""
+    any_active = active.any()
+    return tree_map(lambda n, o: torch.where(any_active, n, o), new, old)
+
+
 def scatter_rows(tree, idx, sub):
     """Scatter subset leaves back into the full population at `idx`
     (returns new tensors; `tree` is left as it was)."""
@@ -85,6 +120,12 @@ def scatter_rows(tree, idx, sub):
         return out
 
     return tree_map(put, tree, sub)
+
+
+def client_slice(tree, i):
+    """Client i's entries of a stacked (nested dict) tree."""
+    return {k: (client_slice(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
 
 
 def scan_train(apply, carry, data, generator, n_steps: int, batch_size: int,
@@ -108,13 +149,54 @@ def scan_train(apply, carry, data, generator, n_steps: int, batch_size: int,
     return carry, torch.stack(losses)
 
 
+def train_sampled(ctx, step, trained, frozen, opt_state, stream: str,
+                  n_steps: int, batch_size: int):
+    """n_steps of `step(trained_i, frozen_i, opt_i, batch_i) -> (trained_i,
+    opt_i, metrics)` on each sampled client, one client at a time. The
+    trees hold the gathered sampled rows; the batches are drawn from
+    `stream` positionally in the full population (or injected as
+    `ctx.draws[stream]`). → (trained, opt_state, losses (n_steps, n))."""
+    data_sub = gather_rows(ctx.data, ctx.sampled_idx)
+
+    def apply(carry, batch):
+        tr, os_ = carry
+        outs = [step(client_slice(tr, i), client_slice(frozen, i),
+                     client_slice(os_, i), client_slice(batch, i))
+                for i in range(ctx.sampled_idx.shape[0])]
+        return ((stack_trees([o[0] for o in outs]),
+                 stack_trees([o[1] for o in outs])),
+                torch.stack([o[2]["loss"] for o in outs]))
+
+    (new, opt), losses = scan_train(
+        apply, (trained, opt_state), data_sub, ctx.streams[stream],
+        n_steps, batch_size, rows=ctx.sampled_idx.cpu(), total=ctx.m,
+        idx=ctx.draw(stream))
+    return new, opt, losses
+
+
+def gossip_edges(uniform, k: int, *, directed: bool):
+    """Random k-neighbour selection mask (no self) from an (M, M) uniform
+    plane; undirected plans are symmetrized (`mask | mask.T`)."""
+    m = uniform.shape[0]
+    no_self = ~torch.eye(m, dtype=torch.bool, device=uniform.device)
+    mask = select_peers(uniform, k=k, candidate_mask=no_self)
+    if not directed:
+        mask = (mask | mask.T) & no_self
+    return mask
+
+
 @dataclass
 class ExchangePlan:
-    """Who exchanges what with whom this round."""
-    pattern: str                            # "p2p" (the PFedDST plan)
+    """Who exchanges what with whom this round. nbr_idx/nbr_w are the
+    packed form of `weights` (`weights_to_neighbors`), attached by the
+    gossip plan when it routes through the `gossip_mix` kernel; `mix_tree`
+    uses them iff present."""
+    pattern: str                            # "star" | "p2p"
     active: Any                             # (M,) bool participants
     edges: Optional[Any] = None             # (M, M) bool, i pulls j
     weights: Optional[Any] = None           # (M, M) row-stochastic mixing
+    nbr_idx: Optional[Any] = None           # (M, D) int32 packed neighbours
+    nbr_w: Optional[Any] = None             # (M, D) f32 packed weights
 
 
 @dataclass
@@ -150,6 +232,16 @@ class RoundContext:
         """The injected draw for `stream`, or None."""
         return self.draws.get(stream)
 
+    def uniform(self, stream: str, shape, device):
+        """The injected (or else freshly drawn, on the CPU) uniform plane
+        of `stream`, as float32 on `device`."""
+        u = self.draw(stream)
+        if u is None:
+            u = torch.rand(shape, generator=self.streams[stream])
+        if not isinstance(u, torch.Tensor):
+            u = torch.from_numpy(np.array(u))
+        return u.to(device, torch.float32)
+
 
 def run_round(stages, state, data, key, *, m: int, ratio: float,
               key_streams: tuple, draws: dict | None = None):
@@ -173,3 +265,145 @@ def run_round(stages, state, data, key, *, m: int, ratio: float,
             and ctx.plan.edges is not None):
         metrics.setdefault("comm_edges", ctx.plan.edges)
     return state, metrics
+
+
+# ---------------------------------------------------------------------------
+# stage library — the reusable stages the baselines compose
+# ---------------------------------------------------------------------------
+
+def stage_plan_star():
+    """Exchange plan of the centralized baselines: every active client
+    uploads to and downloads from the server."""
+
+    def plan_star(state, ctx):
+        ctx.plan = ExchangePlan("star", active=ctx.active)
+        return state
+
+    return plan_star
+
+
+def stage_plan_gossip(fl, *, directed: bool, stream: str = "nbr"):
+    """Random k-neighbour gossip plan; only active clients pull. When the
+    plan's degree bound D is at most M/2 (directed plans: k + 1) and the
+    device packs plans (`kernels.ops.packs_gossip_plans`: always on CUDA),
+    the weights are also packed into neighbour lists, so `stage_mix` runs
+    the O(M·D·F) `gossip_mix` kernel instead of the dense (M, M) mix."""
+
+    def plan_gossip(state, ctx):
+        device = ctx.active.device
+        uniform = ctx.uniform(stream, (ctx.m, ctx.m), device)
+        nbr = gossip_edges(uniform, fl.peers_per_round, directed=directed)
+        nbr = nbr & ctx.active[:, None]
+        weights = selection_to_weights(nbr, include_self=True)
+        nbr_idx = nbr_w = None
+        d_max = gossip_degree_bound(fl.peers_per_round, ctx.m,
+                                    directed=directed)
+        if kernel_ops.packs_gossip_plans(ctx.m, device) \
+                and 2 * d_max <= ctx.m:
+            nbr_idx, nbr_w = weights_to_neighbors(weights, d_max)
+        ctx.plan = ExchangePlan("p2p", active=ctx.active, edges=nbr,
+                                weights=weights, nbr_idx=nbr_idx,
+                                nbr_w=nbr_w)
+        return state
+
+    return plan_gossip
+
+
+def stage_train_full(cfg, fl, opt, n_steps: int, *, stream: str = "train"):
+    """Full-model local SGD on dict states ({"params", "opt", ...}): only
+    the sampled rows train, one client at a time; inactive clients keep
+    params and optimizer state. `train_loss` is the mean last-step loss
+    over the sampled rows."""
+    step = make_full_step(cfg, opt)
+
+    def full_step(params, _frozen, opt_state, batch):
+        return step(params, opt_state, batch)
+
+    def local_train(state, ctx):
+        idx = ctx.sampled_idx
+        params, opt_state = state["params"], state["opt"]
+        p_sub, o_sub = gather_rows((params, opt_state), idx)
+        new_p, new_o, losses = train_sampled(
+            ctx, full_step, p_sub, {}, o_sub, stream, n_steps,
+            fl.batch_size)
+        act_sub = ctx.active[idx]
+        new_p = scatter_rows(params, idx, where_tree(act_sub, new_p, p_sub))
+        new_o = scatter_rows(opt_state, idx,
+                             where_tree(act_sub, new_o, o_sub))
+        ctx.metrics["train_loss"] = losses[-1].mean()
+        return {**state, "params": new_p, "opt": new_o}
+
+    return local_train
+
+
+def stage_star_average(cfg, *, share: str):
+    """Server step: average the shared partition ("model" or "extractor")
+    over the plan's active clients and broadcast it back; keep the old
+    population when nobody participated."""
+
+    def aggregate_star(state, ctx):
+        params, active = state["params"], ctx.plan.active
+        if share == "model":
+            new = mean_over_active(params, active)
+        else:
+            shared, headers = split_params(cfg, params)
+            new = merge_params(mean_over_active(shared, active), headers)
+        return {**state,
+                "params": keep_if_none_active(active, new, params)}
+
+    return aggregate_star
+
+
+def _pack_clients(tree: dict, m: int):
+    """Flatten every (M, ...) leaf to (M, ·) float32 and concatenate →
+    (M, P) (the columns follow the dict's order)."""
+    return torch.cat([leaf.reshape(m, -1).float() for leaf in tree.values()],
+                     dim=1)
+
+
+def _unpack_clients(flat, tree: dict, m: int) -> dict:
+    """Inverse of `_pack_clients`: slice (M, P) back into `tree`'s leaves,
+    each cast back to its dtype."""
+    out, off = {}, 0
+    for name, leaf in tree.items():
+        size = leaf.numel() // m
+        out[name] = flat[:, off:off + size].reshape(leaf.shape).to(
+            leaf.dtype)
+        off += size
+    return out
+
+
+def mix_tree(tree: dict, plan: ExchangePlan, m: int) -> dict:
+    """Row-stochastic mixing of a leading-M tree by an ExchangePlan: one
+    `gossip_mix` call over all leaves packed into (M, P) when the plan
+    carries neighbour lists, else the dense per-leaf mix."""
+    if plan.nbr_idx is not None:
+        mixed = kernel_ops.gossip_mix(_pack_clients(tree, m), plan.nbr_idx,
+                                      plan.nbr_w)
+        return _unpack_clients(mixed, tree, m)
+    return aggregate_extractors(tree, plan.weights)
+
+
+def stage_mix(cfg, *, share: str):
+    """Gossip step: mix the shared partition ("model" or "extractor") by
+    the plan (`mix_tree`); inactive clients keep their model."""
+
+    def aggregate_mix(state, ctx):
+        params, active = state["params"], ctx.plan.active
+        if share == "model":
+            mixed = where_tree(active, mix_tree(params, ctx.plan, ctx.m),
+                               params)
+        else:
+            e, h = split_params(cfg, params)
+            mixed_e = where_tree(active, mix_tree(e, ctx.plan, ctx.m), e)
+            mixed = merge_params(mixed_e, h)
+        return {**state, "params": mixed}
+
+    return aggregate_mix
+
+
+def stage_bump_round():
+    def bump_round(state, ctx):
+        return {**state, "round": state["round"] + 1}
+
+    return bump_round

@@ -2,7 +2,9 @@
 reference `repro.fl.simulator` (per-round driver, no trace, no fabric).
 
 Personalized test accuracy = mean over clients of client i's model on
-client i's OWN test split (the paper's primary metric). Without a comms
+client i's OWN test split (the paper's primary metric); FedBABU's
+evaluation first fine-tunes a throwaway header copy per client
+(`_finetune_heads`). Without a comms
 fabric the communication and device-heterogeneity fields of `History`
 are zeros, as the reference reports them with `FLConfig(comms=None)`.
 """
@@ -14,9 +16,17 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.core.client_state import stack_trees
+from repro_torch.core.partial_freeze import make_phase_steps
+from repro_torch.data.pipeline import as_index_tensor
 from repro_torch.device import resolve_device
+from repro_torch.fl.engine import named_streams
 from repro_torch.fl.strategies import make_strategy
 from repro_torch.models import model as model_mod
+from repro_torch.models.split import merge_params, split_params
+from repro_torch.optim.sgd import sgd
+
+FT_STREAM_KEY = 1 << 20   # keys eval-time fine-tune draws apart from rounds
 
 
 @torch.no_grad()
@@ -28,6 +38,32 @@ def evaluate_population(cfg, params: dict, test_x, test_y):
                            {"images": test_x[i], "labels": test_y[i]})
         for i in range(m)])
     return accs.mean(), accs
+
+
+def _finetune_heads(cfg, fl, params: dict, train_x, train_y, generator,
+                    steps: int = 8, *, idx=None) -> dict:
+    """FedBABU-style eval-time personalization: `steps` phase-h steps on a
+    throwaway header copy per client (fresh optimizer state, batches of
+    the client's own training data), one client at a time; the real
+    state is left untouched. idx (steps, M, B) replaces the batch draws.
+    → merged leading-M params."""
+    opt = sgd(fl.lr, momentum=fl.momentum, weight_decay=fl.weight_decay)
+    phase = make_phase_steps(cfg, opt)
+    m, n = train_x.shape[:2]
+    if idx is None:
+        idx = torch.randint(0, n, (steps, m, fl.batch_size),
+                            generator=generator)
+    idx = as_index_tensor(idx, train_x.device)
+    out = []
+    for i in range(m):
+        e, h = split_params(cfg, {k: v[i] for k, v in params.items()})
+        o = opt.init(h)
+        for s in range(steps):
+            b = idx[s, i]
+            h, o, _ = phase.phase_h(e, h, o, {"images": train_x[i][b],
+                                              "labels": train_y[i][b]})
+        out.append(merge_params(e, h))
+    return stack_trees(out)
 
 
 @dataclass
@@ -133,8 +169,14 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
             on_round(r, metrics)
 
         if (r + 1) % eval_every == 0 or r == num_rounds - 1:
-            acc, _ = evaluate_population(cfg, strat.params_for_eval(state),
-                                         data["test_x"], data["test_y"])
+            params = strat.params_for_eval(state)
+            if strat.needs_head_finetune:
+                # fresh batch draws at every eval point (round in the key)
+                gen = named_streams((seed, FT_STREAM_KEY, r), ("ft",))["ft"]
+                params = _finetune_heads(cfg, fl, params, data["train_x"],
+                                         data["train_y"], gen)
+            acc, _ = evaluate_population(cfg, params, data["test_x"],
+                                         data["test_y"])
             loss_keys = [k for k in metrics if "loss" in k]
             tl = float(np.mean([float(metrics[k]) for k in loss_keys])) \
                 if loss_keys else float("nan")

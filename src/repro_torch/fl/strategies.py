@@ -1,13 +1,32 @@
-"""PFedDST strategies — the `pfeddst` and `pfeddst_random` part of
-reference `repro.fl.strategies`.
+"""The paper's baselines and PFedDST as engine stages — reference
+`repro.fl.strategies`.
 
-    init(seed)                      -> PopulationState
+    init(seed)                      -> state (leading-M stacked)
     round(state, data, key, draws)  -> (state, metrics)
     params_for_eval(state)          -> merged per-client params (leading M)
 
 All local training uses the paper's §III-A recipe (SGD momentum 0.9,
-weight decay 0.005, lr 0.1). The baselines and the semi-async variant are
-ROADMAP queue 1 items 7 and 9 and raise here.
+weight decay 0.005, lr 0.1).
+
+Baselines (paper §III-B), dict states {"params", "opt", "round"[, "mask"]}:
+  fedavg    star plan → full-step train → server-average the model.
+  fedper    star plan → full-step train → server-average the extractor;
+            personal headers ride along.
+  fedbabu   the header frozen at init (never trained or averaged); the
+            extractor trained and averaged. Evaluation fine-tunes a
+            throwaway header copy (`fl.simulator._finetune_heads`).
+  dfedavgm  undirected random-gossip plan → full-step train → mix the
+            whole model.
+  dispfl    personal magnitude masks (fl.dispfl_sparsity) applied →
+            gossip plan → train → mix the extractor → mask evolution
+            (magnitude prune + random regrow at fl.dispfl_regrow, through
+            the `mask_evolve` kernel).
+  dfedpgp   directed gossip plan; the extractor mixed (through the
+            `gossip_mix` kernel on a card), the header personal.
+PFedDST (`core.rounds.make_pfeddst_stages`) over a PopulationState:
+  pfeddst        the paper's method;
+  pfeddst_random ablation, selection="random".
+The semi-async `pfeddst_async` is ROADMAP queue 1 item 9 and raises here.
 """
 from __future__ import annotations
 
@@ -15,22 +34,60 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 
-from repro_torch.core.client_state import init_population
+from repro_torch.core.client_state import init_population, stack_trees
 from repro_torch.core.partial_freeze import make_phase_steps
 from repro_torch.core.rounds import PFEDDST_STREAMS, make_pfeddst_stages
 from repro_torch.device import resolve_device
-from repro_torch.fl.engine import run_round
-from repro_torch.models.split import merge_params
+from repro_torch.fl.engine import (
+    client_slice,
+    device_generator,
+    gather_rows,
+    named_streams,
+    run_round,
+    scatter_rows,
+    stage_bump_round,
+    stage_mix,
+    stage_plan_gossip,
+    stage_plan_star,
+    stage_star_average,
+    stage_train_full,
+    train_sampled,
+    where_tree,
+)
+from repro_torch.kernels import ops
+from repro_torch.models import model as model_mod
+from repro_torch.models.split import merge_params, split_params
 from repro_torch.optim.sgd import sgd
+from repro_torch.utils.pytree import leaf_order
 
-STRATEGIES = ("pfeddst", "pfeddst_random")
+CENTRAL = ("fedavg", "fedper", "fedbabu")
+GOSSIP = ("dfedavgm", "dispfl", "dfedpgp")
+STRATEGIES = CENTRAL + GOSSIP + ("pfeddst", "pfeddst_random")
 
-NOT_PORTED = {
-    "fedavg": 7, "fedper": 7, "fedbabu": 7, "dfedavgm": 7, "dispfl": 7,
-    "dfedpgp": 7, "pfeddst_async": 9,
-}
+NOT_PORTED = {"pfeddst_async": 9}
+
+CENTRAL_STREAMS = ("act", "train")
+GOSSIP_STREAMS = ("act", "train", "nbr", "grow")
+# dispfl's initial masks draw from their own stream, keyed (seed, 7) as
+# the reference folds 7 into its init key
+MASK_SEED_SALT = 7
+
+
+def _opt(fl):
+    return sgd(fl.lr, momentum=fl.momentum, weight_decay=fl.weight_decay)
+
+
+def local_train_steps(name: str, fl, steps_per_epoch: int) -> int:
+    """Local SGD steps one client runs in one round of strategy `name`:
+    K_e + K_h epochs for the PFedDST family, K_e epochs of the full or
+    extractor-only step for every other strategy."""
+    epochs = fl.epochs_extractor
+    if name.startswith("pfeddst"):
+        epochs += fl.epochs_header
+    return epochs * steps_per_epoch
 
 
 @dataclass
@@ -39,7 +96,195 @@ class Strategy:
     init: Callable             # (seed) -> state
     round: Callable            # (state, data, key, draws=None) -> (state, metrics)
     params_for_eval: Callable  # (state) -> leading-M params
+    needs_head_finetune: bool = False
+    comm_pattern: str = "p2p"         # "p2p" | "star" (client↔server)
+    payload_kind: str = "extractor"   # "extractor" | "model" per message
+    stages: tuple = ()                # the round's stages, in order
+    key_streams: tuple = ()           # the round's stream layout
 
+
+# ---------------------------------------------------------------------------
+# shared init
+# ---------------------------------------------------------------------------
+
+def _init_clients(cfg, seed: int, m: int, device) -> list:
+    """M independent random inits, drawn in order from one generator."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [model_mod.init_params(cfg, gen, device) for _ in range(m)]
+
+
+def _init_opt(opt, params: dict, m: int):
+    """Per-client optimizer states of stacked params, stacked."""
+    return stack_trees([opt.init(client_slice(params, i)) for i in range(m)])
+
+
+# ---------------------------------------------------------------------------
+# centralized family (fedavg / fedper / fedbabu)
+# ---------------------------------------------------------------------------
+
+def _init_broadcast(cfg, seed: int, m: int, device) -> dict:
+    """One global init (client 0's), broadcast to all M rows — headers
+    included; fedper's diverge through local training."""
+    first = model_mod.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
+    return {n: t.expand((m,) + t.shape).clone() for n, t in first.items()}
+
+
+def stage_train_babu(cfg, fl, opt, n_steps: int, *, stream: str = "train"):
+    """FedBABU local training: phase-e steps (header frozen) on the
+    sampled rows; the optimizer state covers the extractor only."""
+    phase = make_phase_steps(cfg, opt)
+
+    def local_train_babu(state, ctx):
+        idx = ctx.sampled_idx
+        e, h = split_params(cfg, state["params"])
+        e_sub, h_sub, o_sub = gather_rows((e, h, state["opt"]["e"]), idx)
+        new_e, opt_e, losses = train_sampled(
+            ctx, phase.phase_e, e_sub, h_sub, o_sub, stream, n_steps,
+            fl.batch_size)
+        act_sub = ctx.active[idx]
+        new_e = scatter_rows(e, idx, where_tree(act_sub, new_e, e_sub))
+        opt_e = scatter_rows(state["opt"]["e"], idx,
+                             where_tree(act_sub, opt_e, o_sub))
+        ctx.metrics["train_loss"] = losses[-1].mean()
+        return {**state, "params": merge_params(new_e, h),
+                "opt": {"e": opt_e}}
+
+    return local_train_babu
+
+
+def _central_spec(cfg, fl, steps_per_epoch: int, kind: str, device):
+    opt = _opt(fl)
+    n_steps = fl.epochs_extractor * steps_per_epoch
+
+    def init(seed: int):
+        params = _init_broadcast(cfg, seed, fl.num_clients, device)
+        rnd = torch.zeros((), dtype=torch.int32)
+        if kind == "fedbabu":   # extractor-only optimizer state
+            e, _ = split_params(cfg, params)
+            return {"params": params,
+                    "opt": {"e": _init_opt(opt, e, fl.num_clients)},
+                    "round": rnd}
+        return {"params": params,
+                "opt": _init_opt(opt, params, fl.num_clients), "round": rnd}
+
+    if kind == "fedbabu":
+        train = stage_train_babu(cfg, fl, opt, n_steps)
+    else:
+        train = stage_train_full(cfg, fl, opt, n_steps)
+    share = "model" if kind == "fedavg" else "extractor"
+    stages = (stage_plan_star(), train, stage_star_average(cfg, share=share),
+              stage_bump_round())
+    return init, stages, CENTRAL_STREAMS, dict(
+        comm_pattern="star", payload_kind=share,
+        needs_head_finetune=(kind == "fedbabu"))
+
+
+# ---------------------------------------------------------------------------
+# decentralized gossip family (dfedavgm / dfedpgp / dispfl)
+# ---------------------------------------------------------------------------
+
+def stage_apply_masks():
+    """DisPFL: project each client's params onto its sparse mask before
+    local training."""
+
+    def apply_masks(state, ctx):
+        params = {n: p * state["mask"][n].to(p.dtype)
+                  for n, p in state["params"].items()}
+        return {**state, "params": params}
+
+    return apply_masks
+
+
+def stage_evolve_masks(fl, *, stream: str = "grow"):
+    """DisPFL mask evolution, leaf by leaf through `kernels.ops.mask_evolve`:
+    prune each stacked (M, …) leaf back to its `keep` largest magnitudes —
+    one threshold over all M clients' copies, as in the reference — regrow
+    where the leaf's bool plane is set (uniform > 1 − fl.dispfl_regrow),
+    re-project. The planes come from `ctx.draws[stream]` by leaf name, or
+    else from a generator on the leaves' device, in the reference's leaf
+    order."""
+    sparsity, regrow = fl.dispfl_sparsity, fl.dispfl_regrow
+
+    def evolve_masks(state, ctx):
+        params = state["params"]
+        planes = ctx.draw(stream)
+        gen = None
+        if planes is None:
+            device = next(iter(params.values())).device
+            gen = device_generator(ctx.streams[stream], device)
+        new_params, new_mask = {}, {}
+        for name in leaf_order(params):
+            leaf = params[name]
+            keep = max(int(leaf.numel() * (1 - sparsity)), 1)
+            if gen is None:
+                grown = planes[name]
+                if not isinstance(grown, torch.Tensor):
+                    grown = torch.from_numpy(np.array(grown))
+                grown = grown.to(leaf.device, torch.bool)
+            else:
+                grown = torch.rand(leaf.shape, generator=gen,
+                                   device=leaf.device) > (1.0 - regrow)
+            new_params[name], new_mask[name] = ops.mask_evolve(leaf, grown,
+                                                               keep=keep)
+        return {**state,
+                "params": {n: new_params[n] for n in params},
+                "mask": {n: new_mask[n] for n in params}}
+
+    return evolve_masks
+
+
+def _gossip_spec(cfg, fl, steps_per_epoch: int, kind: str, device):
+    opt = _opt(fl)
+    n_steps = fl.epochs_extractor * steps_per_epoch
+
+    def init(seed: int):
+        params = stack_trees(_init_clients(cfg, seed, fl.num_clients,
+                                           device))
+        state = {"params": params,
+                 "opt": _init_opt(opt, params, fl.num_clients),
+                 "round": torch.zeros((), dtype=torch.int32)}
+        if kind == "dispfl":
+            gen = device_generator(named_streams(
+                (seed, MASK_SEED_SALT), ("mask",))["mask"], device)
+            masks = {n: torch.rand(params[n].shape, generator=gen,
+                                   device=device) > fl.dispfl_sparsity
+                     for n in leaf_order(params)}
+            state["mask"] = {n: masks[n] for n in params}
+        return state
+
+    share = "model" if kind == "dfedavgm" else "extractor"
+    stages = (stage_plan_gossip(fl, directed=(kind == "dfedpgp")),
+              stage_train_full(cfg, fl, opt, n_steps),
+              stage_mix(cfg, share=share))
+    if kind == "dispfl":
+        stages = (stage_apply_masks(),) + stages + (stage_evolve_masks(fl),)
+    return init, stages + (stage_bump_round(),), GOSSIP_STREAMS, dict(
+        payload_kind=share)
+
+
+# ---------------------------------------------------------------------------
+# PFedDST (+ random-selection ablation)
+# ---------------------------------------------------------------------------
+
+def _pfeddst_spec(cfg, fl, steps_per_epoch: int, name: str, device):
+    opt = _opt(fl)
+    if name == "pfeddst_random":
+        fl = dataclasses.replace(fl, selection="random")
+    stages = make_pfeddst_stages(
+        cfg, fl, make_phase_steps(cfg, opt), steps_per_epoch=steps_per_epoch,
+        probe_size=fl.probe_size, use_score_kernel=fl.use_score_kernel)
+
+    def init(seed: int):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return init_population(cfg, gen, fl.num_clients, opt, opt, device)
+
+    return init, stages, PFEDDST_STREAMS, {}
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
 
 def make_strategy(name: str, cfg, fl, steps_per_epoch: int = 2, *,
                   device="cuda") -> Strategy:
@@ -51,22 +296,25 @@ def make_strategy(name: str, cfg, fl, steps_per_epoch: int = 2, *,
     if name not in STRATEGIES:
         raise KeyError(f"unknown strategy {name!r}; available: {STRATEGIES}")
     device = resolve_device(device)
-    opt = sgd(fl.lr, momentum=fl.momentum, weight_decay=fl.weight_decay)
-    if name == "pfeddst_random":
-        fl = dataclasses.replace(fl, selection="random")
-    stages = make_pfeddst_stages(
-        cfg, fl, make_phase_steps(cfg, opt), steps_per_epoch=steps_per_epoch,
-        probe_size=fl.probe_size, use_score_kernel=fl.use_score_kernel)
-
-    def init(seed: int):
-        gen = torch.Generator(device=device).manual_seed(seed)
-        return init_population(cfg, gen, fl.num_clients, opt, opt, device)
+    spec = (_central_spec if name in CENTRAL else
+            _gossip_spec if name in GOSSIP else _pfeddst_spec)
+    init, stages, streams, meta = spec(cfg, fl, steps_per_epoch, name,
+                                       device)
 
     def round_fn(state, data, key, draws=None):
         return run_round(stages, state, data, key, m=fl.num_clients,
-                         ratio=fl.client_sample_ratio,
-                         key_streams=PFEDDST_STREAMS, draws=draws)
+                         ratio=fl.client_sample_ratio, key_streams=streams,
+                         draws=draws)
 
     return Strategy(name=name, init=init, round=round_fn,
-                    params_for_eval=lambda s: merge_params(s.extractor,
-                                                           s.header))
+                    params_for_eval=(_pfeddst_params if spec is _pfeddst_spec
+                                     else _dict_params),
+                    stages=stages, key_streams=streams, **meta)
+
+
+def _dict_params(state):
+    return state["params"]
+
+
+def _pfeddst_params(state):
+    return merge_params(state.extractor, state.header)

@@ -18,13 +18,14 @@ import os
 import shutil
 import subprocess
 import tempfile
-from ctypes import c_float, c_int, c_void_p
+from ctypes import c_float, c_int, c_longlong, c_void_p
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("raw_gram.cu", "select_topk.cu")
+SOURCES = ("gossip_mix.cu", "mask_evolve.cu", "raw_gram.cu",
+           "select_topk.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -33,6 +34,16 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # c_void_p so ctypes never truncates them to 32 bits). All return the
 # cudaError_t of the launch as an int.
 SIGNATURES = {
+    "repro_gossip_mix_f32": [
+        c_void_p, c_void_p, c_void_p, c_void_p,          # x idx w out
+        c_int, c_longlong, c_int, c_void_p,              # m f d stream
+    ],
+    "repro_mask_evolve": [
+        c_void_p, c_int, c_void_p,                       # x dtype grow
+        c_longlong, c_longlong,                          # n target
+        c_void_p, c_void_p, c_void_p, c_void_p,          # counts out mask thr
+        c_void_p,                                        # stream
+    ],
     "repro_raw_gram_f32": [c_void_p, c_void_p, c_int, c_int, c_void_p],
     "repro_select_topk_f32": [
         c_void_p, c_void_p, c_void_p, c_void_p, c_int,   # x inv last sl t

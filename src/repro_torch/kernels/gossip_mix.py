@@ -1,0 +1,104 @@
+"""Sparse gossip mixing over packed neighbour lists — reference
+`repro.kernels.gossip_mix`.
+
+Row-stochastic gossip mixing (the aggregate step of dfedavgm, dfedpgp
+and dispfl) is `out = W @ X` with at most D nonzeros per row of W (the
+k gossip pulls and the client itself). Packed as (idx, w) lists
+(`weights_to_neighbors`: ascending nonzero columns, padded with index 0
+and weight 0.0), the mix is
+
+    out[i] = Σ_d w[i, d] · x[idx[i, d]]      d ascending, f32 FMA steps
+
+`gossip_mix_cuda` launches the hand-written CUDA kernel
+(`csrc/gossip_mix.cu`, which replaces the Pallas `gossip_mix`);
+`gossip_mix_plain` is its plain PyTorch version. Both accumulate the
+slots in ascending order with one single-rounded multiply-add per slot,
+which is what the reference's Pallas kernel, `gossip_mix_blocked` and
+`ref.gossip_mix_ref` compute on the CPU (XLA contracts `acc + w·x` into
+an FMA), so all of them agree bitwise. `gossip_mix_dense` scatters the
+lists back to (M, M) and runs one matrix product: the reference's dense
+route, a plain GEMM outside any kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.peer_score import check_cuda_matrix
+from repro_torch.kernels.ref import fma_f32, neighbors_to_dense
+
+MAX_D = 1024  # neighbour slots the CUDA kernel stages in shared memory
+
+
+def weights_to_neighbors(weights, d_max: int):
+    """Pack a dense (M, M) mixing matrix into neighbour lists.
+
+    → (idx (M, d_max) int32 ascending nonzero columns, w (M, d_max) f32),
+    padded with index 0 / weight 0.0. `d_max` must bound the true row
+    degree (self included): overflow neighbours would be dropped."""
+    nz = weights != 0.0
+    # a stable sort of ~nz floats the nonzero columns to the front in
+    # ascending column order — the accumulation order of every route
+    order = torch.sort((~nz).to(torch.uint8), dim=1, stable=True).indices
+    idx = order[:, :d_max]
+    w = torch.gather(weights, 1, idx).float()
+    return idx.to(torch.int32), w
+
+
+def gossip_degree_bound(k: int, m: int, *, directed: bool) -> int:
+    """Static row-degree bound of a k-peer gossip plan, self included:
+    k + 1 for a directed plan (each row pulls its own k picks); M for an
+    undirected `mask | mask.T` plan, whose in-degree random selection does
+    not bound (the reference's topology bound needs the comms fabric,
+    which is not ported)."""
+    d = k + 1 if directed else m
+    return max(1, min(d, m))
+
+
+def gossip_mix_plain(x, idx, w):
+    """x (M, F); idx/w (M, D) packed lists → (M, F) in x.dtype: the D
+    slots in ascending order, each a single-rounded f32 multiply-add."""
+    xf = x.float()
+    wf = w.float()
+    idx = idx.long()
+    acc = torch.zeros_like(xf)
+    for d in range(idx.shape[1]):
+        acc = fma_f32(wf[:, d:d + 1], xf[idx[:, d]], acc)
+    return acc.to(x.dtype)
+
+
+def gossip_mix_dense(x, idx, w):
+    """Scatter the lists back to a dense (M, M) matrix and mix with one
+    f32 matrix product (reference `gossip_mix_dense`)."""
+    return (neighbors_to_dense(idx, w, x.shape[0]) @ x.float()).to(x.dtype)
+
+
+def gossip_mix_cuda(x, idx, w):
+    """The CUDA kernel. x (M, F) f32; idx (M, D) int32 with entries in
+    [0, M); w (M, D) f32 — contiguous, on one CUDA device. → (M, F) f32,
+    bitwise equal to `gossip_mix_plain`."""
+    check_cuda_matrix("x", x, torch.float32)
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"x must be a non-empty (M, F) matrix, got "
+                         f"{tuple(x.shape)}")
+    m, f = x.shape
+    if idx.dim() != 2 or idx.shape[0] != m or idx.shape[1] < 1:
+        raise ValueError(f"idx must be an (M, D) matrix with M={m}, got "
+                         f"{tuple(idx.shape)}")
+    d = idx.shape[1]
+    if d > MAX_D:
+        raise ValueError(f"the gossip_mix kernel takes D <= {MAX_D} "
+                         f"neighbour slots, got D={d}")
+    check_cuda_matrix("idx", idx, torch.int32, (m, d), x.device)
+    check_cuda_matrix("w", w, torch.float32, (m, d), x.device)
+    out = torch.empty_like(x)
+    lib = build.library()
+    code = lib.repro_gossip_mix_f32(
+        x.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), m, f, d,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    gossip_mix_cuda.launches += 1
+    build.check(code, "gossip_mix")
+    return out
+
+
+gossip_mix_cuda.launches = 0

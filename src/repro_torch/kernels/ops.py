@@ -3,6 +3,8 @@
 
   * core/scoring.py  header_distance_matrix(use_kernel=True) → cosine_gram
   * core/scoring.py  score_topk                              → select_topk
+  * fl/engine.py     mix_tree (packed gossip plans)          → gossip_mix
+  * fl/strategies.py stage_evolve_masks (dispfl)             → mask_evolve
 
 Routing is by the device of the input, never by a fallback: a CUDA tensor
 reaches the CUDA kernel (or the kernel raises), a CPU tensor takes the
@@ -14,10 +16,21 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import gossip_mix as _gm
+from repro_torch.kernels import mask_evolve as _me
 from repro_torch.kernels import peer_score as _ps
 from repro_torch.kernels import select_score as _ss
 
-KERNELS = {"raw_gram": _ps.raw_gram_cuda, "select_topk": _ss.select_topk_cuda}
+KERNELS = {"gossip_mix": _gm.gossip_mix_cuda,
+           "mask_evolve": _me.mask_evolve_cuda,
+           "raw_gram": _ps.raw_gram_cuda,
+           "select_topk": _ss.select_topk_cuda}
+
+# Packing a gossip plan into neighbour lists pays on the CPU only from
+# this population size on (the reference's measured crossover, where its
+# dense einsum stops fitting in cache). On a CUDA card the plan is always
+# packed for the kernel, as the reference does on a TPU.
+MIN_PACKED_MIX_CPU = 1024
 
 
 def launch_counts() -> dict:
@@ -74,3 +87,33 @@ def select_topk(x, last_selected, s_l, t, cost, candidate_mask=None, *,
         x.float().contiguous(), last_selected.to(torch.int32).contiguous(),
         s_l.float().contiguous(), int(t), cost, candidate_mask,
         k=k, alpha=alpha, lam=lam)
+
+
+def packs_gossip_plans(m: int, device) -> bool:
+    """Whether a gossip plan over M clients on `device` is packed into
+    neighbour lists for `gossip_mix` (else it mixes dense)."""
+    return torch.device(device).type == "cuda" or m >= MIN_PACKED_MIX_CPU
+
+
+def gossip_mix(x, idx, w, *, impl: str | None = None):
+    """Row-stochastic mixing over packed neighbour lists: x (M, F), idx/w
+    (M, D) ascending lists from `weights_to_neighbors` → (M, F) f32.
+    Every route agrees bitwise."""
+    if _route(x, impl) == "cuda":
+        return _gm.gossip_mix_cuda(x.float().contiguous(),
+                                   idx.to(torch.int32).contiguous(),
+                                   w.float().contiguous())
+    return _gm.gossip_mix_plain(x, idx, w).float()
+
+
+def mask_evolve(x, grow, *, keep: int, impl: str | None = None):
+    """DisPFL mask evolution of one leaf: keep the `keep` largest |x|,
+    regrow where `grow`, re-project. → (x·mask in x.dtype, mask bool).
+    Every route agrees bitwise."""
+    if _route(x, impl) == "cuda":
+        out, mask, _ = _me.mask_evolve_cuda(x.contiguous(),
+                                            grow.bool().contiguous(),
+                                            keep=keep)
+    else:
+        out, mask, _ = _me.mask_evolve_plain(x, grow, keep=keep)
+    return out, mask

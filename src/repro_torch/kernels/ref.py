@@ -1,8 +1,10 @@
 """Plain PyTorch oracles — torch twins of `repro.kernels.ref`.
 
 These are the definitions of correctness the CUDA kernels are held to:
-`cosine_gram_ref` (Eq. 7), `select_score_ref` (dense masked Eq. 9) and
-`select_topk_ref` (dense Eq. 9 then a stable top-k).
+`cosine_gram_ref` (Eq. 7), `select_score_ref` (dense masked Eq. 9),
+`select_topk_ref` (dense Eq. 9 then a stable top-k), `gossip_mix_ref`
+(dense sequential neighbour accumulation) and `mask_evolve_ref`
+(partition threshold, then drop and regrow).
 """
 from __future__ import annotations
 
@@ -65,3 +67,58 @@ def select_topk_ref(x, last_selected, s_l, t, cost, candidate_mask=None,
     vals, idx = stable_topk(s, k)
     stats = torch.stack([cos.sum(dim=1), torch.diagonal(cos)], dim=1)
     return vals, idx.to(torch.int32), stats
+
+
+def fma_f32(a, b, c):
+    """a·b + c for float32 tensors, rounded once to float32 — a fused
+    multiply-add, the rounding XLA's CPU backend gives `acc + w·x`.
+
+    The product of two float32 values is exact in float64. The float64
+    sum is made round-to-odd (TwoSum gives its exact error; an inexact
+    sum with an even last bit steps one ulp toward the error), and a
+    round-to-odd value with at least two bits more than float32 rounds to
+    float32 exactly as the exact sum would: no double rounding."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def neighbors_to_dense(idx, w, m: int):
+    """Packed (M, D) neighbour lists → the dense (M, M) f32 mixing matrix
+    (padding slots add exact zeros)."""
+    rows = torch.arange(m, device=idx.device)[:, None].expand_as(idx)
+    dense = torch.zeros((m, m), dtype=torch.float32, device=idx.device)
+    dense.index_put_((rows, idx.long()), w.float(), accumulate=True)
+    return dense
+
+
+def gossip_mix_ref(x, idx, w):
+    """Dense oracle of the gossip mix: scatter the packed (idx, w)
+    neighbour lists back to a dense (M, M) matrix, then accumulate the
+    columns j = 0..M−1 in ascending order, each step one single-rounded
+    multiply-add (reference `ref.gossip_mix_ref`). → (M, F) in x.dtype."""
+    m = x.shape[0]
+    xf = x.float()
+    dense = neighbors_to_dense(idx, w, m)
+    acc = torch.zeros_like(xf)
+    for j in range(m):
+        acc = fma_f32(dense[:, j:j + 1], xf[j:j + 1], acc)
+    return acc.to(x.dtype)
+
+
+def mask_evolve_ref(x, grow, *, keep: int):
+    """Partition oracle of DisPFL's mask evolution: threshold = the
+    (n − keep)-th smallest |x| (`torch.kthvalue`, equal to the
+    reference's `jnp.partition(|x|, kth)[kth]`), mask = (|x| ≥ thr) |
+    grow, params re-projected by a product. → (x·mask in x.dtype, mask
+    bool)."""
+    flat = x.float().abs().reshape(-1)
+    thr = torch.kthvalue(flat, flat.numel() - keep + 1).values
+    mask = (x.float().abs() >= thr) | grow
+    return x * mask.to(x.dtype), mask

@@ -85,7 +85,8 @@ def test_kernels_count_launches_and_refuse_bad_input(cuda):
     last = torch.full((8, 8), -1, dtype=torch.int32, device=cuda)
     s_l = torch.rand(8, 8, device=cuda)
     ops.select_topk(x, last, s_l, 0, 1.0, k=3, alpha=ALPHA, lam=LAM)
-    assert ops.launch_counts() == {"raw_gram": 1, "select_topk": 1}
+    assert ops.launch_counts() == {"gossip_mix": 0, "mask_evolve": 0,
+                                   "raw_gram": 1, "select_topk": 1}
     from repro_torch.kernels.select_score import select_topk_cuda
 
     with pytest.raises(ValueError):
@@ -97,3 +98,85 @@ def test_kernels_count_launches_and_refuse_bad_input(cuda):
                                    device=cuda),
                         torch.rand(40, 40, device=cuda), 0, 1.0, k=33,
                         alpha=ALPHA, lam=LAM)
+
+
+def _gossip_case(m, f, k, seed, dev, *, directed=True):
+    """A plan-shaped instance: random k-peer selection (symmetrized when
+    undirected), some inactive rows, row-stochastic weights with self,
+    packed lists."""
+    from repro_torch.core.aggregation import selection_to_weights
+    from repro_torch.fl.engine import gossip_edges
+    from repro_torch.kernels.gossip_mix import (gossip_degree_bound,
+                                                weights_to_neighbors)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mask = gossip_edges(torch.rand((m, m), generator=g, device=dev), k,
+                        directed=directed)
+    mask &= (torch.rand((m,), generator=g, device=dev) < 0.7)[:, None]
+    w = selection_to_weights(mask, include_self=True)
+    idx, wl = weights_to_neighbors(w, gossip_degree_bound(k, m,
+                                                          directed=directed))
+    return torch.randn((m, f), generator=g, device=dev), idx, wl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,f,k,directed", [(16, 4096, 4, True),
+                                            (16, 1001, 4, True),
+                                            (37, 130, 3, False),
+                                            (300, 2052, 10, True)])
+def test_gossip_mix_kernel_bitwise_equals_plain(cuda, m, f, k, directed):
+    """Bitwise: both take the slots in order with one FMA each (F = 1001
+    takes the scalar path, the others the 16-byte one)."""
+    x, idx, w = _gossip_case(m, f, k, m + f, cuda, directed=directed)
+    got = ops.gossip_mix(x, idx, w)
+    want = ops.gossip_mix(x, idx, w, impl="plain")
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 10), (16, 64), (16, 3, 3, 64, 64),
+                                   (5, 700001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ties", [False, True])
+def test_mask_evolve_kernel_bitwise_equals_plain(cuda, shape, dtype, ties):
+    """Threshold, mask and output bits equal (signed zeros count), with
+    keep = n/2, 1 and n."""
+    from repro_torch.kernels.mask_evolve import (mask_evolve_cuda,
+                                                 mask_evolve_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device=cuda)
+    if ties:
+        x = (x * 4).round() / 4
+    x = x.to(dtype)
+    grow = torch.rand(shape, generator=g, device=cuda) > 0.98
+    n = x.numel()
+    for keep in (max(n // 2, 1), 1, n):
+        out, mask, thr = mask_evolve_cuda(x, grow, keep=keep)
+        p_out, p_mask, p_thr = mask_evolve_plain(x, grow, keep=keep)
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(thr.view(torch.int32), p_thr.view(torch.int32))
+        assert torch.equal(mask, p_mask)
+        assert torch.equal(out.view(bits), p_out.view(bits))
+
+
+@pytest.mark.cuda
+def test_new_kernels_count_launches_and_refuse_bad_input(cuda):
+    ops.reset_launch_counts()
+    x, idx, w = _gossip_case(8, 64, 2, 0, cuda)
+    ops.gossip_mix(x, idx, w)
+    leaf = torch.randn(8, 33, device=cuda)
+    ops.mask_evolve(leaf, torch.zeros_like(leaf, dtype=torch.bool), keep=100)
+    assert ops.launch_counts() == {"gossip_mix": 1, "mask_evolve": 1,
+                                   "raw_gram": 0, "select_topk": 0}
+    from repro_torch.kernels.gossip_mix import gossip_mix_cuda
+    from repro_torch.kernels.mask_evolve import mask_evolve_cuda
+
+    with pytest.raises(ValueError):
+        gossip_mix_cuda(x, idx.long(), w)
+    with pytest.raises(ValueError):
+        mask_evolve_cuda(leaf.half(), torch.zeros_like(leaf, dtype=torch.bool),
+                         keep=3)
+    with pytest.raises(ValueError):
+        mask_evolve_cuda(leaf, torch.zeros_like(leaf, dtype=torch.bool),
+                         keep=0)

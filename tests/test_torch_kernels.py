@@ -1,20 +1,27 @@
 """Port kernels against the reference's Pallas kernels (interpret mode)
-and oracles: raw_gram / cosine_gram and the fused select_topk.
+and oracles: raw_gram / cosine_gram, the fused select_topk, gossip_mix
+and mask_evolve.
 
 On the CPU the port's wrappers take their plain versions; the CUDA
 kernels themselves are held to the plain versions on a card by
 tests/test_torch_cuda.py and by chip_smoke.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core.aggregation import selection_to_weights as ref_weights
+from repro.core.selection import select_peers as ref_select_peers
+from repro.kernels import gossip_mix as ref_gm
+from repro.kernels import mask_evolve as ref_me
 from repro.kernels import peer_score as ref_ps
 from repro.kernels import ref as jref
 from repro.kernels import select_score as ref_ss
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels import peer_score, select_score
+from repro_torch.kernels import gossip_mix, mask_evolve, peer_score, \
+    select_score
 
 from test_torch_support import to_torch
 
@@ -179,7 +186,12 @@ def test_plain_route_counts_no_launches():
     ops.reset_launch_counts()
     ops.select_topk(*_torch_args(*_inputs(6, 8)), k=2, alpha=ALPHA, lam=LAM)
     ops.cosine_gram(torch.ones(4, 3))
-    assert ops.launch_counts() == {"raw_gram": 0, "select_topk": 0}
+    ops.gossip_mix(torch.ones(4, 3), torch.zeros(4, 2, dtype=torch.int32),
+                   torch.ones(4, 2))
+    ops.mask_evolve(torch.ones(4, 3), torch.zeros(4, 3, dtype=torch.bool),
+                    keep=5)
+    assert ops.launch_counts() == {"gossip_mix": 0, "mask_evolve": 0,
+                                   "raw_gram": 0, "select_topk": 0}
 
 
 @pytest.mark.parametrize("k", [0, 6, 7])
@@ -188,3 +200,242 @@ def test_select_topk_rejects_k_outside_one_to_m_minus_one(k):
     with pytest.raises(ValueError, match="k must be in"):
         ops.select_topk(*_torch_args(*_inputs(6, 8)), k=k, alpha=ALPHA,
                         lam=LAM)
+
+
+# ---------------------------------------------------------------------------
+# gossip_mix
+# ---------------------------------------------------------------------------
+
+def _gossip_inputs(m, f, k, directed, seed=0):
+    """A plan-shaped instance made by the reference: a random k-peer
+    selection (symmetrized when undirected), random inactive rows,
+    row-stochastic weights with self, packed lists. → numpy (x, idx, w,
+    dense weights)."""
+    ks = jax.random.split(jax.random.PRNGKey(seed), 3)
+    mask = ref_select_peers(jax.random.uniform(ks[0], (m, m)), k=k,
+                            candidate_mask=~jnp.eye(m, dtype=bool))
+    if not directed:
+        mask = mask | mask.T
+    mask = mask & jax.random.bernoulli(ks[1], 0.7, (m,))[:, None]
+    w = ref_weights(mask, include_self=True)
+    x = jax.random.normal(ks[2], (m, f), jnp.float32)
+    d = ref_gm.gossip_degree_bound(k, m, directed=directed)
+    idx, wl = ref_gm.weights_to_neighbors(w, d)
+    return tuple(np.asarray(a) for a in (x, idx, wl, w))
+
+
+GOSSIP_CASES = [(8, 16, 2, True), (17, 130, 3, False), (33, 257, 5, False),
+                (64, 384, 10, True)]
+
+
+@pytest.mark.parametrize("m,f,k,directed", GOSSIP_CASES)
+def test_gossip_mix_plain_bitwise_equals_reference(m, f, k, directed):
+    """Bitwise against the Pallas kernel (interpret), gossip_mix_blocked
+    and ref.gossip_mix_ref: every route accumulates the ascending slots
+    with one single-rounded multiply-add each (XLA's CPU FMA). Undirected
+    plans carry D = M slots, most of them zero-weight padding."""
+    x, idx, wl, _ = _gossip_inputs(m, f, k, directed, seed=m)
+    args = (jnp.asarray(x), jnp.asarray(idx), jnp.asarray(wl))
+    got = gossip_mix.gossip_mix_plain(*(to_torch(a) for a in (x, idx, wl)))
+    routed = ops.gossip_mix(*(to_torch(a) for a in (x, idx, wl)))
+    oracle = ref.gossip_mix_ref(*(to_torch(a) for a in (x, idx, wl)))
+    for want in (ref_gm.gossip_mix(*args, block_f=128, interpret=True),
+                 ref_gm.gossip_mix_blocked(*args), jref.gossip_mix_ref(*args)):
+        want = np.asarray(want)
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      want.view(np.int32))
+        np.testing.assert_array_equal(routed.numpy().view(np.int32),
+                                      want.view(np.int32))
+        np.testing.assert_array_equal(oracle.numpy().view(np.int32),
+                                      want.view(np.int32))
+
+
+def test_gossip_mix_plain_is_not_mul_then_add():
+    """The FMA matters: a mul-then-add loop differs from the reference in
+    the last bit somewhere, the plain version nowhere."""
+    x, idx, wl, _ = _gossip_inputs(16, 3000, 4, True)
+    want = np.asarray(ref_gm.gossip_mix_blocked(
+        jnp.asarray(x), jnp.asarray(idx), jnp.asarray(wl)))
+    xt, it, wt = to_torch(x), to_torch(idx).long(), to_torch(wl)
+    acc = torch.zeros_like(xt)
+    for d in range(it.shape[1]):
+        acc = acc + wt[:, d:d + 1] * xt[it[:, d]]
+    assert (acc.numpy() != want).any()
+    got = gossip_mix.gossip_mix_plain(xt, to_torch(idx), wt).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_fma_f32_rounds_once():
+    """fma_f32(a, b, c) is the float32 value nearest the exact a·b + c
+    (checked against exact rationals), including cancellations."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=3000).astype(np.float32)
+    b = rng.normal(size=3000).astype(np.float32)
+    c = (rng.normal(size=3000) * rng.choice([1e-8, 1.0, 1e8], 3000)).astype(
+        np.float32)
+    c[:500] = -(a[:500].astype(np.float64) * b[:500]).astype(np.float32)
+    got = ref.fma_f32(to_torch(a), to_torch(b), to_torch(c)).numpy()
+    for i in range(a.size):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) \
+            + Fraction(float(c[i]))
+        err = abs(Fraction(float(got[i])) - exact)
+        for nb in (np.nextafter(got[i], np.float32(-np.inf)),
+                   np.nextafter(got[i], np.float32(np.inf))):
+            assert err <= abs(Fraction(float(nb)) - exact), i
+
+
+@pytest.mark.parametrize("m,k,directed", [(9, 2, True), (17, 3, False),
+                                          (33, 5, True)])
+def test_weights_to_neighbors_matches_reference(m, k, directed):
+    """Exact: the same ascending (idx, w) lists and zero padding."""
+    _, idx, wl, w = _gossip_inputs(m, 4, k, directed, seed=k)
+    d = gossip_mix.gossip_degree_bound(k, m, directed=directed)
+    assert d == ref_gm.gossip_degree_bound(k, m, directed=directed)
+    got_idx, got_w = gossip_mix.weights_to_neighbors(to_torch(w), d)
+    assert got_idx.dtype == torch.int32 and got_w.dtype == torch.float32
+    np.testing.assert_array_equal(got_idx.numpy(), idx)
+    np.testing.assert_array_equal(got_w.numpy(), wl)
+
+
+def test_gossip_mix_dense_matches_reference():
+    """rtol 1e-6: one f32 matrix product against the reference's einsum
+    (the same products, summed in another order)."""
+    x, idx, wl, _ = _gossip_inputs(17, 130, 3, False)
+    got = gossip_mix.gossip_mix_dense(*(to_torch(a) for a in (x, idx, wl)))
+    want = ref_gm.gossip_mix_dense(jnp.asarray(x), jnp.asarray(idx),
+                                   jnp.asarray(wl))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_packs_gossip_plans_by_device():
+    """CUDA always packs (the TPU branch of the reference); the CPU keeps
+    the reference's CPU threshold, so the CPU tests compare like routes."""
+    assert ops.packs_gossip_plans(16, "cuda")
+    assert not ops.packs_gossip_plans(16, "cpu")
+    assert not ops.packs_gossip_plans(1023, "cpu")
+    assert ops.packs_gossip_plans(1024, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# mask_evolve
+# ---------------------------------------------------------------------------
+
+def _evolve_inputs(shape, dtype, *, ties=False, seed=0):
+    """(x, grow) made in the reference's types: numpy float32 values cast
+    by jnp to `dtype`; grow = uniform > 0.98 (the dispfl regrow rate)."""
+    rng = np.random.default_rng(seed)
+    if ties:
+        x = rng.integers(-4, 5, size=shape).astype(np.float32) * 0.25
+    else:
+        x = rng.normal(size=shape).astype(np.float32)
+    grow = rng.uniform(size=shape) > 0.98
+    return jnp.asarray(x).astype(dtype), jnp.asarray(grow)
+
+
+def _to_port(a):
+    a = np.asarray(a)
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return to_torch(a)
+
+
+def _bits(a):
+    """Integer view of a float array (numpy or torch), signed zeros kept."""
+    if isinstance(a, torch.Tensor):
+        a = a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32)
+        return a.numpy()
+    return a.view(np.int16 if a.dtype == jnp.bfloat16 else np.int32)
+
+
+EVOLVE_CASES = [
+    ((6, 37), jnp.float32, False, "half"),       # below 2048 elements
+    ((4, 3, 3, 8, 8), jnp.float32, False, "half"),
+    ((4, 3, 3, 8, 8), jnp.bfloat16, False, "half"),
+    ((5, 700), jnp.float32, True, "half"),       # ties at the threshold
+    ((5, 700), jnp.bfloat16, True, "half"),
+    ((3, 50), jnp.float32, False, "one"),
+    ((3, 50), jnp.bfloat16, True, "all"),
+    ((3, 50), jnp.float32, True, "all"),
+]
+
+
+def _assert_same_zeros_up_to_sign(got, want):
+    """Bits equal wherever `want` is nonzero; zeros (of either sign) where
+    it is zero."""
+    got, want = _bits(got), _bits(want)
+    zero_bits = 0x7FFF if got.dtype == np.int16 else 0x7FFFFFFF
+    nz = (want & zero_bits) != 0
+    np.testing.assert_array_equal(got[nz], want[nz])
+    assert not (got[~nz] & zero_bits).any()
+
+
+@pytest.mark.parametrize("shape,dtype,ties,keep_kind", EVOLVE_CASES)
+def test_mask_evolve_plain_bitwise_equals_reference(shape, dtype, ties,
+                                                    keep_kind):
+    """Bitwise: the threshold against the reference's bisection and
+    partition, and the mask and output bits (signed zeros count) against
+    the reference's oracle `mask_evolve_ref`, run as written (a product:
+    a dropped negative weight becomes −0.0); the port's own oracle
+    (torch.kthvalue) and routed version too. Against the Pallas kernel
+    (interpret), the mask bitwise and the output bitwise up to the sign of
+    dropped entries: XLA rewrites its x·convert(mask) into a select, so
+    its dropped negatives are +0.0 (ROADMAP queue 3)."""
+    x, grow = _evolve_inputs(shape, dtype, ties=ties, seed=len(shape))
+    n = x.size
+    keep = {"half": max(int(n * 0.5), 1), "one": 1, "all": n}[keep_kind]
+    tx, tg = _to_port(x), _to_port(grow)
+    out, mask, thr = mask_evolve.mask_evolve_plain(tx, tg, keep=keep)
+    flat = jnp.abs(x.astype(jnp.float32)).ravel()
+    for want_thr in (ref_me.magnitude_threshold(flat, n - keep),
+                     jnp.partition(flat, n - keep)[n - keep]):
+        np.testing.assert_array_equal(thr.numpy().view(np.int32),
+                                      np.asarray(want_thr).view(np.int32))
+    routed = ops.mask_evolve(tx, tg, keep=keep)
+    oracle = ref.mask_evolve_ref(tx, tg, keep=keep)
+    want_out, want_mask = (np.asarray(a) for a in
+                           jref.mask_evolve_ref(x, grow, keep=keep))
+    for got_out, got_mask in ((out, mask), routed, oracle):
+        assert got_out.dtype == tx.dtype and got_mask.dtype == torch.bool
+        np.testing.assert_array_equal(got_mask.numpy(), want_mask)
+        np.testing.assert_array_equal(_bits(got_out), _bits(want_out))
+    kern_out, kern_mask = ref_me.mask_evolve(x, grow, keep=keep,
+                                             interpret=True)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(kern_mask))
+    _assert_same_zeros_up_to_sign(out, np.asarray(kern_out))
+
+
+def test_mask_evolve_keeps_exactly_keep_without_ties_or_regrow():
+    """Distinct magnitudes, no regrow: exactly `keep` entries survive, the
+    largest ones."""
+    x = torch.randperm(500).float().reshape(5, 100) - 250.0
+    none = torch.zeros(x.shape, dtype=torch.bool)
+    out, mask, thr = mask_evolve.mask_evolve_plain(x, none, keep=123)
+    assert int(mask.sum()) == 123
+    assert float(thr) == float(x.abs().flatten().sort().values[500 - 123])
+    assert torch.equal(out, torch.where(mask, x, x * 0))
+
+
+@pytest.mark.parametrize("keep", [0, 11])
+def test_mask_evolve_rejects_keep_outside_one_to_n(keep):
+    with pytest.raises(ValueError, match="keep must be in"):
+        ops.mask_evolve(torch.ones(2, 5), torch.zeros(2, 5, dtype=torch.bool),
+                        keep=keep)
+
+
+def test_new_cuda_wrappers_refuse_cpu_tensors():
+    """Both new kernel wrappers check their inputs before any build or
+    launch, and impl='cuda' on a CPU tensor raises."""
+    x = torch.ones(4, 3)
+    idx = torch.zeros(4, 2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        gossip_mix.gossip_mix_cuda(x, idx, torch.ones(4, 2))
+    with pytest.raises(ValueError):
+        ops.gossip_mix(x, idx, torch.ones(4, 2), impl="cuda")
+    grow = torch.zeros(4, 3, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        mask_evolve.mask_evolve_cuda(x, grow, keep=3)
+    with pytest.raises(ValueError):
+        ops.mask_evolve(x, grow, keep=3, impl="cuda")

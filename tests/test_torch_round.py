@@ -218,8 +218,8 @@ def test_unported_options_raise():
     from repro_torch.fl.strategies import make_strategy
 
     cfg = get_config("resnet18-cifar").reduced()
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        make_strategy("fedavg", cfg, FLConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        make_strategy("pfeddst_async", cfg, FLConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         make_pfeddst_stages(cfg, FLConfig(), None, hetero=object())
 
