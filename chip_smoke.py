@@ -22,6 +22,15 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             mask_evolve (the dispfl round's largest and smallest stacked
             leaves, 16×2,359,296 and 16×10 in bf16, and 16×64; keep = n/2,
             regrow 0.02): threshold, mask and output bits equal.
+            flash_attention (qwen2-1.5b prefill: q (4, 4096, 12, 128), k/v
+            (4, 4096, 2, 128) bf16, causal: within one bf16 ulp; f32 cases
+            with rep 1 and 6, hd 64 and 128, ragged lengths, a window and a
+            q_offset: within 1e-5·max(1, max|out|); the prefill_32k shape
+            (1, 32768, 12/2, 128), kernel and library times only).
+            wkv_chunked (rwkv6-7b prefill: B=4, S=4096, H=64, hd=64, r/k/v
+            bf16, w = exp(−exp(U[−6, −1])) f32: one bf16 ulp; an f32 case
+            with strong decay, S = 4096 + 37 and a nonzero initial state:
+            output within 1e-4·max|out|, state within 1e-5·max|S|).
 3. path     `run_experiment` for every ported strategy on full-width
             ResNet-18 in bf16 at the paper-scale settings of
             examples/fl_cifar_sim.py (M=16, 4 peers, batch 128, ratio 0.25,
@@ -38,6 +47,12 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             accuracy must be finite; every active client must select
             exactly k peers (pfeddst, dfedpgp) or at least k (the
             undirected plans), inactive ones none.
+            Then `serve_requests` (launch/serve.py) for qwen2-1.5b and
+            rwkv6-7b at full width and depth in bf16 with random weights:
+            batch 4, prompt 4096, 32 greedy tokens, 3 requests each, the
+            launch counters set to 0 just before each: flash_attention must
+            run once per layer per request (28 × 3), wkv_chunked likewise
+            (32 × 3); logits finite, tokens inside the vocabulary.
 4. agree    at a small f32 size, the card against the CPU (plain versions,
             the path the CPU tests hold to the JAX reference) from the same
             parameters and draws: pfeddst and pfeddst_random selection
@@ -45,12 +60,16 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             on the card, dense mix on the CPU) edges exact, params rtol
             1e-3; dispfl edges exact, masks exact apart from counted
             entries within rtol 2e-3 of their leaf's threshold, the other
-            params rtol 1e-3.
+            params rtol 1e-3. Serving at the reduced qwen2-1.5b and
+            rwkv6-7b configs in f32 (batch 2, prompt 80, 8 tokens), the
+            same weights on both: greedy tokens equal, prefill logits and
+            the KV cache / rwkv state within 1e-4 of their scale.
 5. profile  one more pfeddst round under torch.profiler; the top CUDA
             kernels by time go to chiprun_out/chip_smoke_profile.txt.
 
-Output: the card's name and power limit (nvidia-smi), one `kernels` JSON
-line, the round walls, and last `{"ok": true, "device": {...}}`.
+Output: each phase's wall, the card's name and power limit (nvidia-smi),
+one `kernels` JSON line, the round walls, and last
+`{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -65,8 +84,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
+# bf16 on the tensor cores, HBM3
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 BASELINE_LR = 0.01   # the six baselines' SGD rate in phase 3 (see there)
 
@@ -95,9 +116,9 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, peak: float = FP32_FLOPS):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -275,6 +296,122 @@ def check_evolve(me, shape, dtype, seed, dev, iters):
                 bound_by=b_by, library_ms=library_ms)
 
 
+def visible_pairs(sq, skv, *, causal, window, q_offset) -> int:
+    """(query, key) pairs the mask keeps: the work attention must do."""
+    import numpy as np
+
+    rows = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(rows, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(rows - window + 1, 0) if window else np.zeros(sq,
+                                                                  np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def check_flash(ops, ref, case, dtype, dev, iters, *, plain=True,
+                library=False):
+    """One flash_attention case: kernel against the plain version (f32:
+    1e-5·max(1, max|out|); bf16: one ulp), times, and the bound."""
+    import torch
+
+    b, sq, skv, h, kh, hd, causal, window, q_offset = case
+    g = torch.Generator(device=dev).manual_seed(sum(case))
+    q = torch.randn((b, sq, h, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, skv, kh, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, skv, kh, hd), generator=g, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash_attention {case}: output not finite")
+    row = dict(shape=list(case), dtype=str(dtype).split(".")[-1])
+    if plain:
+        want = ops.flash_attention(q, k, v, impl="plain", **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if dtype == torch.float32:
+            scale = max(1.0, float(want.abs().max()))
+            ok = err <= 1e-5 * scale
+        else:
+            ok = ref.within_ulps(got, want)
+        if not ok:
+            raise AssertionError(f"flash_attention {case} {dtype}: max "
+                                 f"error {err} against the plain version")
+        row.update(max_abs_err=err, plain_ms=time_ms(
+            lambda: ops.flash_attention(q, k, v, impl="plain", **kw),
+            max(1, iters // 2), warmup=1))
+    else:
+        row.update(max_abs_err=None, plain_ms=None,
+                   plain_skipped="the plain version walks the "
+                   f"{-(-sq // 128)}×{-(-skv // 128)} (q, kv) blocks in "
+                   "eager PyTorch; the kernel is held to it at the path "
+                   "shape")
+    row["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, **kw), iters,
+                        warmup=1)
+    row["library_ms"] = None
+    if library:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row["library_ms"] = time_ms(
+            lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True),
+            iters, warmup=1)
+    flops = 4.0 * b * h * hd * visible_pairs(sq, skv, **kw)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peak)
+    row["fp32_ffma_bound_ms"], _ = bound(nbytes, flops, FP32_FLOPS)
+    row["tflops"] = flops / row["ms"] / 1e9
+    return row
+
+
+def wkv_ops(b, s, h, hd) -> float:
+    """Operations the WKV recurrence needs over the sequence, per token and
+    head: r·S (2·hd²), the state's decay and k·vᵀ update (3·hd²), and the
+    bonus r·(u⊙k)·v (5·hd). Fewer than the TPU kernel's chunked form does
+    (its (C, C, hd) decay products and exps: 2.2× more at hd = C = 64)."""
+    return float(b * s * h * (5 * hd * hd + 5 * hd))
+
+
+def check_wkv(ops, ref, b, s, h, dtype, hi, state, dev, iters,
+              plain_iters):
+    """One wkv_chunked case: kernel against the plain version (output
+    1e-4·max|out| at f32 or one bf16 ulp; state 1e-5·max|S|), times, and
+    the bound. w = exp(−exp(U[−6, hi]))."""
+    import torch
+
+    hd = 64
+    g = torch.Generator(device=dev).manual_seed(s + h + b)
+    r, k, v = (torch.randn((b, s, h, hd), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand((b, s, h, hd), generator=g,
+                                        device=dev) * (hi + 6.0) - 6.0))
+    u = torch.randn((h, hd), generator=g, device=dev) * 0.3
+    s0 = torch.randn((b, h, hd, hd), generator=g, device=dev) if state \
+        else None
+    out, sf = ops.wkv(r, k, v, w, u, s0)
+    p_out, p_sf = ops.wkv(r, k, v, w, u, s0, impl="plain")
+    torch.cuda.synchronize()
+    err = float((out.float() - p_out.float()).abs().max())
+    s_err = float((sf - p_sf).abs().max())
+    s_scale = float(p_sf.abs().max())
+    ok = (err <= 1e-4 * float(p_out.abs().max())
+          if dtype == torch.float32 else ref.within_ulps(out, p_out))
+    if not ok or not s_err <= 1e-5 * s_scale:
+        raise AssertionError(f"wkv_chunked B={b} S={s} H={h} {dtype}: "
+                             f"output error {err}, state error {s_err} "
+                             f"(state scale {s_scale})")
+    ms = time_ms(lambda: ops.wkv(r, k, v, w, u, s0), iters, warmup=1)
+    plain_ms = time_ms(lambda: ops.wkv(r, k, v, w, u, s0, impl="plain"),
+                       plain_iters, warmup=1)
+    nbytes = 4 * r.numel() * r.element_size() + w.numel() * 4 + \
+        u.numel() * 4 + (2 if state else 1) * b * h * hd * hd * 4
+    b_ms, b_by = bound(nbytes, wkv_ops(b, s, h, hd))
+    return dict(b=b, s=s, h=h, hd=hd, dtype=str(dtype).split(".")[-1],
+                w_min=float(w.min()), state=state, max_abs_err=err,
+                state_err=s_err, state_scale=s_scale, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the port's main path
 # ---------------------------------------------------------------------------
@@ -352,6 +489,74 @@ def run_path(name, cfg, fl, data, rounds, dev, run_experiment, ops,
     return dict(name=name, round_walls_s=walls, total_s=total,
                 accuracy=h["accuracy"], edges=edges, launches=launches,
                 **{key: h["extra"][key] for key in loss_keys[:1]})
+
+
+SERVE_ARCHS = {"qwen2-1.5b": "flash_attention", "rwkv6-7b": "wkv_chunked"}
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_REQUESTS = 4, 4096, 32, 3
+
+
+def run_serve(arch, dev, ops):
+    """`serve_requests` at the full width and depth of `arch` in bf16 with
+    random weights; the launch counters are set to 0 just before it and
+    read just after. The weights are freed before returning."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import flatten_tree
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import model as model_mod
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = model_mod.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in flatten_tree(params).values())
+
+    def prompts_fn(i):
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        return torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                             generator=g, device=dev, dtype=torch.int32)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, stats = serve_requests(cfg, params, prompts_fn,
+                                num_requests=SERVE_REQUESTS,
+                                prompt_len=SERVE_PROMPT,
+                                gen_tokens=SERVE_GEN)
+    total = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    kernel = SERVE_ARCHS[arch]
+    want = {name: (cfg.num_layers * SERVE_REQUESTS if name == kernel else 0)
+            for name in SERVE_ARCHS.values()}
+    got = {name: launches[name] for name in want}
+    if got != want:
+        raise AssertionError(f"{arch}: serving launches {got}, expected "
+                             f"{want}")
+    if not all(stats["logits_finite"]):
+        raise AssertionError(f"{arch}: logits not finite "
+                             f"{stats['logits_finite']}")
+    new = out[:, SERVE_PROMPT:]
+    if out.shape != (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN) or \
+            int(new.min()) < 0 or int(new.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{arch}: tokens {tuple(out.shape)} in "
+                             f"[{int(new.min())}, {int(new.max())}]")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, out, new
+    torch.cuda.empty_cache()
+    st = stats["stages"]
+    pre, dec = st["prefill"], st["decode"]
+    return dict(
+        arch=arch, params=n_params, init_s=init_s, total_s=total,
+        launches=launches, requests_s=stats["requests"],
+        prefill_first_s=pre["first_s"], prefill_steady_s=pre["steady_s"],
+        decode_first_s=dec["first_s"], decode_steady_s=dec["steady_s"],
+        prefill_tok_per_s=SERVE_BATCH * SERVE_PROMPT / pre["steady_s"],
+        decode_tok_per_s=SERVE_BATCH * SERVE_GEN / dec["steady_s"],
+        decode_step_ms=dec["steady_s"] / SERVE_GEN * 1e3,
+        peak_mem_gb=peak_gb)
 
 
 # ---------------------------------------------------------------------------
@@ -498,6 +703,51 @@ def check_baseline_agreement(dev):
     return out
 
 
+def check_serve_agreement(dev):
+    """The reduced qwen2-1.5b and rwkv6-7b in f32 from the same weights
+    and prompts on the card (kernels) and the CPU (plain versions): greedy
+    tokens equal; prefill logits and the KV cache / rwkv state within 1e-4
+    of their scale."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import flatten_tree
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as model_mod
+    from repro_torch.utils.pytree import tree_map
+
+    out = {}
+    for arch in SERVE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        params = model_mod.init_params(cfg, torch.Generator().manual_seed(7),
+                                       "cpu")
+        card = tree_map(lambda t: t.to(dev), params)
+        toks = torch.randint(0, cfg.vocab_size, (2, 80), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(8))
+        res = {}
+        lc, cc = model_mod.prefill(cfg, params, {"tokens": toks}, max_seq=88)
+        lg, cg = model_mod.prefill(cfg, card, {"tokens": toks.to(dev)},
+                                   max_seq=88)
+        pairs = [("logits", lg.cpu(), lc)] + [
+            (name, t.cpu(), flatten_tree(cc)[name])
+            for name, t in flatten_tree(cg).items()]
+        for name, got, want in pairs:
+            scale = max(1.0, float(want.abs().max()))
+            err = float((got - want).abs().max())
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"{arch} prefill {name}: card and CPU "
+                                     f"differ by {err} (scale {scale})")
+            res[name] = err
+        tc = generate(cfg, params, toks, gen_tokens=8)
+        tg = generate(cfg, card, toks.to(dev), gen_tokens=8)
+        if not torch.equal(tc, tg.cpu()):
+            raise AssertionError(f"{arch}: greedy tokens differ between card "
+                                 f"and CPU: {tg[:, 80:].tolist()} vs "
+                                 f"{tc[:, 80:].tolist()}")
+        out[arch] = res
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -525,6 +775,8 @@ def main() -> int:
     print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
     card = card_line()
 
+    walls = {}
+    t_phase = time.perf_counter()
     # ---- 1. build ---------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -538,6 +790,8 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip())
 
+    walls["1 build"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     # ---- 2. kernels against their plain versions ---------------------------
     p = 512 * 10 + 10          # ResNet-18 header: fc weight + bias
     main_sel = []
@@ -578,7 +832,32 @@ def main() -> int:
         print("gossip_mix", json.dumps(row), flush=True)
     for row in evolves:
         print("mask_evolve", json.dumps(row), flush=True)
+    # the qwen2-1.5b prefill shape first: its row is the kernel's line
+    flashes = [check_flash(ops, ref, (4, 4096, 4096, 12, 2, 128, True, 0, 0),
+                           torch.bfloat16, dev, 5, library=True)]
+    for case in ((2, 1000, 1000, 12, 2, 128, True, 0, 0),    # rep 6, ragged
+                 (1, 777, 1300, 4, 4, 64, True, 0, 523),     # rep 1, offset
+                 (1, 900, 900, 6, 1, 64, True, 256, 0),      # rep 6, window
+                 (1, 333, 1055, 8, 4, 128, True, 200, 722),  # all of them
+                 (2, 500, 700, 4, 2, 64, False, 0, 0)):      # not causal
+        flashes.append(check_flash(ops, ref, case, torch.float32, dev, 5))
+    flashes.append(check_flash(ops, ref, (1, 32768, 32768, 12, 2, 128, True,
+                                          0, 0), torch.bfloat16, dev, 3,
+                               plain=False, library=True))
+    for row in flashes:
+        print("flash_attention", json.dumps(row), flush=True)
+    wkvs = [check_wkv(ops, ref, 4, 4096, 64, torch.bfloat16, -1.0, False,
+                      dev, 5, 2),
+            check_wkv(ops, ref, 1, 4096 + 37, 8, torch.float32, 1.0, True,
+                      dev, 5, 2),
+            check_wkv(ops, ref, 2, 300, 4, torch.bfloat16, 1.0, True, dev,
+                      5, 2)]
+    for row in wkvs:
+        print("wkv_chunked", json.dumps(row), flush=True)
+    walls["2 kernels"] = time.perf_counter() - t_phase
+    print(f"phase 2 wall: {walls['2 kernels']:.1f} s", flush=True)
 
+    t_phase = time.perf_counter()
     # ---- 3. the main path ---------------------------------------------------
     cfg = get_config("resnet18-cifar")             # full width, bf16
     fl = FLConfig(num_clients=16, peers_per_round=4, batch_size=128,
@@ -603,11 +882,20 @@ def main() -> int:
                                   ("fedper", 2), ("fedbabu", 2))]
     launches = {PATH_KERNELS[r["name"]]: r["launches"][PATH_KERNELS[r["name"]]]
                 for r in paths if r["name"] in PATH_KERNELS}
-    print("launches (each kernel in its path's run):", json.dumps(launches),
-          flush=True)
     for run in paths:
         print("path", json.dumps(run), flush=True)
+    serves = []
+    for arch in SERVE_ARCHS:
+        serves.append(run_serve(arch, dev, ops))
+        print("serve", json.dumps(serves[-1]), flush=True)
+    launches.update({SERVE_ARCHS[r["arch"]]: r["launches"][SERVE_ARCHS[
+        r["arch"]]] for r in serves})
+    print("launches (each kernel in its path's run):", json.dumps(launches),
+          flush=True)
+    walls["3 path"] = time.perf_counter() - t_phase
+    print(f"phase 3 wall: {walls['3 path']:.1f} s", flush=True)
 
+    t_phase = time.perf_counter()
     # ---- 4. card against CPU at a small size -------------------------------
     agree = check_agreement(dev)
     print("agree: masks exact, loss_matrix max abs diff", json.dumps(agree),
@@ -615,7 +903,13 @@ def main() -> int:
     agree_base = check_baseline_agreement(dev)
     print("agree: dfedpgp/dispfl edges exact, params within rtol 1e-3",
           json.dumps(agree_base), flush=True)
+    agree_serve = check_serve_agreement(dev)
+    print("agree: serving greedy tokens equal, prefill max abs diff",
+          json.dumps(agree_serve), flush=True)
+    walls["4 agree"] = time.perf_counter() - t_phase
+    print(f"phase 4 wall: {walls['4 agree']:.1f} s", flush=True)
 
+    t_phase = time.perf_counter()
     # ---- 5. profile one steady pfeddst round --------------------------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -651,6 +945,9 @@ def main() -> int:
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")
+
+    walls["5 profile"] = time.perf_counter() - t_phase
+    print(f"phase 5 wall: {walls['5 profile']:.1f} s", flush=True)
 
     # ---- output -------------------------------------------------------------
     k_main = main_sel[0]
@@ -689,9 +986,32 @@ def main() -> int:
          "bound_ms": evolves[0]["bound_ms"],
          "bound_by": evolves[0]["bound_by"],
          "library_ms": evolves[0]["library_ms"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:112",
+         "launches": launches["flash_attention"],
+         "max_abs_err": flashes[0]["max_abs_err"],
+         "ms": flashes[0]["ms"], "plain_ms": flashes[0]["plain_ms"],
+         "bound_ms": flashes[0]["bound_ms"],
+         "bound_by": flashes[0]["bound_by"],
+         "library_ms": flashes[0]["library_ms"]},
+        {"name": "wkv_chunked", "route": "cuda",
+         "source": "src/repro_torch/csrc/wkv_chunked.cu",
+         "replaces": "src/repro/kernels/wkv_chunked.py:107",
+         "launches": launches["wkv_chunked"],
+         "max_abs_err": wkvs[0]["max_abs_err"],
+         "ms": wkvs[0]["ms"], "plain_ms": wkvs[0]["plain_ms"],
+         "bound_ms": wkvs[0]["bound_ms"], "bound_by": wkvs[0]["bound_by"],
+         "library_ms": None},
     ]
     print("round walls (s):", json.dumps(
         {r["name"]: r["round_walls_s"] for r in paths}), flush=True)
+    print("serving (s, tokens/s):", json.dumps(
+        {r["arch"]: {k: r[k] for k in (
+            "prefill_first_s", "prefill_steady_s", "decode_first_s",
+            "decode_steady_s", "prefill_tok_per_s", "decode_tok_per_s")}
+         for r in serves}), flush=True)
+    print("phase walls (s):", json.dumps(walls), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

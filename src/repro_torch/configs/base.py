@@ -1,11 +1,13 @@
 """Model/run configuration dataclasses — the port's own copy of
-`repro.configs.base`, trimmed to the fields the PFedDST round and the
-paper's baselines read.
+`repro.configs.base`, trimmed to the fields the ported paths read.
 
-`ModelConfig` keeps the CNN family only (the paper's ResNet-18/CIFAR);
-`FLConfig` keeps the Section III protocol. The reference's network
-fabric, device-heterogeneity and open-world fields are not ported yet
-(ROADMAP queue 1 items 8–11), so a config cannot ask for them.
+`ModelConfig` keeps the CNN family (the paper's ResNet-18/CIFAR) and the
+dense and ssm (RWKV6) LLM families that the serving path runs. The
+reference's MoE, MLA, hybrid, audio and vlm fields are not ported (ROADMAP
+queue 1 item 12). `FLConfig` keeps the Section III protocol; the
+reference's network fabric, device-heterogeneity and open-world fields are
+not ported yet (ROADMAP queue 1 items 8–11), so a config cannot ask for
+them.
 """
 from __future__ import annotations
 
@@ -17,20 +19,67 @@ from typing import Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # "cnn" is the only family ported
+    family: str                    # cnn | dense | ssm are ported
     dtype: str = "bfloat16"
+    source: str = ""               # citation of the published config
+
+    # --- LLM (dense, ssm) ----------------------------------------------------
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    num_kv_heads: int = 0          # 0 → MHA (= num_heads)
+    head_dim: int = 0              # 0 → d_model // num_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    act: str = "silu"
+    ssm_head_dim: int = 64         # rwkv6 wkv head width
+
+    # --- CNN (the paper's resnet) ----------------------------------------------
     cnn_stages: Tuple[int, ...] = ()      # blocks per stage
     cnn_width: int = 64
     image_size: int = 32
     image_channels: int = 3
     num_classes: int = 0
 
+    def __post_init__(self):
+        if self.num_kv_heads == 0 and self.num_heads:
+            object.__setattr__(self, "num_kv_heads", self.num_heads)
+        if self.head_dim == 0 and self.num_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embed/lm_head vocab dim, padded to a multiple of 256 (the
+        reference's layout); the padded classes are never sampled."""
+        return ((self.vocab_size + 255) // 256) * 256
+
+    @property
+    def n_rep(self) -> int:
+        """GQA repetition factor."""
+        return max(1, self.num_heads // max(1, self.num_kv_heads))
+
     def reduced(self) -> "ModelConfig":
-        """Same-family CPU smoke variant (reference `ModelConfig.reduced`:
-        two stages of one block, width 16)."""
+        """Same-family CPU smoke variant (reference `ModelConfig.reduced`):
+        an LLM keeps ≤2 layers, d_model ≤ 256, ≤4 heads, d_ff ≤ 512 and a
+        vocabulary ≤ 512; the CNN two stages of one block at width 16."""
         changes = dict(name=self.name + "-smoke")
         if self.family == "cnn":
             changes.update(cnn_stages=(1, 1), cnn_width=16)
+        else:
+            d_model = min(self.d_model, 256)
+            heads = min(self.num_heads, 4)
+            changes.update(
+                num_layers=min(self.num_layers, 2),
+                d_model=d_model,
+                num_heads=heads,
+                num_kv_heads=min(self.num_kv_heads, heads),
+                head_dim=max(8, d_model // heads) if heads else 0,
+                d_ff=min(self.d_ff, 512),
+                vocab_size=min(self.vocab_size, 512),
+            )
         return dataclasses.replace(self, **changes)
 
 

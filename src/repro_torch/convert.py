@@ -6,8 +6,14 @@ of dotted names with OIHW conv weights. These functions convert numpy
 trees (the reference's arrays after `np.asarray`) to the port's tensors
 and back, so a test can feed both packages the same state and compare in
 the reference's layout: the PFedDST PopulationState, and the baselines'
-dict states (params, optimizer state, round, dispfl's masks). Leaves may carry leading axes (a stacked
-population): only the last four axes of a conv weight are transposed.
+dict states (params, optimizer state, round, dispfl's masks). Leaves may
+carry leading axes (a stacked population): only the last four axes of a
+conv weight are transposed.
+
+The LLM families (dense, ssm) keep the reference's nested dicts and
+layout unchanged: (L, …) stacked leaves, (d_in, d_out) weights that the
+port applies as x @ W. The HWIO↔OIHW transpose is a property of the cnn
+family; it applies to a cnn tree's conv leaves and to no other family's.
 """
 from __future__ import annotations
 
@@ -20,8 +26,10 @@ from repro_torch.device import resolve_device
 CONV_LEAVES = ("conv", "conv1", "conv2", "proj")
 
 
-def _is_conv(name: str) -> bool:
-    return name.rsplit(".", 1)[-1] in CONV_LEAVES
+def _is_conv(name: str, family: str) -> bool:
+    """A cnn conv weight (named by its last component); never a leaf of
+    another family, whatever its name."""
+    return family == "cnn" and name.rsplit(".", 1)[-1] in CONV_LEAVES
 
 
 def _hwio_to_oihw(a):
@@ -70,27 +78,30 @@ def unflatten_tree(flat: dict) -> dict:
     return listify(root)
 
 
-def params_from_reference(np_tree, device="cuda") -> dict:
-    """Reference cnn params (numpy, any leading axes) → port flat dict
-    (arrays are copied) on `device`; raises if it names CUDA and there is
-    none."""
+def params_from_reference(np_tree, device="cuda", *,
+                          family: str = "cnn") -> dict:
+    """Reference params (numpy, any leading axes) → the port's params on
+    `device` (arrays are copied): a flat dict with OIHW convs for the cnn
+    family, the reference's nested dicts unchanged for the LLM families.
+    Raises if `device` names CUDA and there is none."""
     device = resolve_device(device)
     out = {}
     for name, leaf in flatten_tree(np_tree).items():
         a = np.asarray(leaf)
-        if _is_conv(name):
+        if _is_conv(name, family):
             a = _hwio_to_oihw(a)
         out[name] = torch.from_numpy(np.array(a)).to(device)
-    return out
+    return out if family == "cnn" else unflatten_tree(out)
 
 
-def params_to_reference(params: dict) -> dict:
-    """Port flat dict → reference nested numpy tree (HWIO convs)."""
+def params_to_reference(params: dict, *, family: str = "cnn") -> dict:
+    """The port's params → the reference's nested numpy tree (floating
+    leaves as float32; HWIO convs for the cnn family)."""
     flat = {}
-    for name, t in params.items():
-        a = t.detach().float().cpu().numpy() if t.is_floating_point() \
-            else t.detach().cpu().numpy()
-        flat[name] = _oihw_to_hwio(a) if _is_conv(name) else a
+    for name, t in flatten_tree(params).items():
+        t = t.detach().cpu()
+        a = (t.float() if t.is_floating_point() else t).numpy()
+        flat[name] = _oihw_to_hwio(a) if _is_conv(name, family) else a
     return unflatten_tree(flat)
 
 

@@ -24,8 +24,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("gossip_mix.cu", "mask_evolve.cu", "raw_gram.cu",
-           "select_topk.cu")
+SOURCES = ("flash_attention.cu", "gossip_mix.cu", "mask_evolve.cu",
+           "raw_gram.cu", "select_topk.cu", "wkv_chunked.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -34,6 +34,11 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # c_void_p so ctypes never truncates them to 32 bits). All return the
 # cudaError_t of the launch as an int.
 SIGNATURES = {
+    "repro_flash_attention": [
+        c_void_p, c_void_p, c_void_p, c_void_p, c_int,   # q k v out dtype
+        c_int, c_int, c_int, c_int, c_int, c_int,        # b sq skv h kh hd
+        c_int, c_int, c_int, c_void_p,                   # causal window
+    ],                                                   # q_offset stream
     "repro_gossip_mix_f32": [
         c_void_p, c_void_p, c_void_p, c_void_p,          # x idx w out
         c_int, c_longlong, c_int, c_void_p,              # m f d stream
@@ -52,6 +57,11 @@ SIGNATURES = {
         c_int, c_int, c_int,                             # m p k
         c_float, c_float, c_void_p,                      # alpha lam stream
     ],
+    "repro_wkv_chunked": [
+        c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,  # r k v w u
+        c_void_p, c_void_p, c_void_p,                      # s0 out s_fin
+        c_int, c_int, c_int, c_int, c_int, c_void_p,       # dtype b seq h
+    ],                                                     # hd stream
 }
 
 _LIB = None          # the loaded library, once per process

@@ -1,0 +1,127 @@
+"""Blocked online-softmax attention — reference
+`repro.kernels.flash_attention`.
+
+Causal and sliding-window masks, a query offset, and GQA (query head h
+reads kv head h // (H/K)) on q (B, Sq, H, hd) and k/v (B, Skv, K, hd);
+the running max m, sum l and accumulator stay in f32 and the output is in
+q's dtype. `flash_attention_cuda` launches the hand-written CUDA kernel
+(`csrc/flash_attention.cu`, which replaces the Pallas `flash_attention`);
+`flash_attention_plain` is its plain PyTorch version: the Pallas body over
+(q block, kv block) pairs, skipping kv blocks wholly outside the band.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.peer_score import check_cuda_matrix
+
+BLOCK = 128               # the Pallas kernel's default q and kv block
+HEAD_DIMS = (64, 128)     # the CUDA kernel's instances
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def in_band(row_lo: int, row_hi: int, col_lo: int, col_hi: int, *,
+            skv: int, causal: bool, window: int) -> bool:
+    """Whether any (row, col) of a block can be visible (Pallas `in_band`)."""
+    ok = col_lo < skv
+    if causal:
+        ok &= col_lo <= row_hi
+    if window:
+        ok &= col_hi > row_lo - window
+    return ok
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          q_offset: int = 0):
+    """The Pallas body in PyTorch: for each q block, the kv blocks in its
+    band in order, with the online softmax (masked scores −1e30, masked
+    p zeroed, l floored at 1e-30). → (B, Sq, H, hd) in q.dtype."""
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    if h % kh:
+        raise ValueError(f"query heads {h} not a multiple of kv heads {kh}")
+    rep = h // kh
+    bq, bkv = min(BLOCK, max(sq, 8)), min(BLOCK, max(skv, 8))
+    scale = 1.0 / math.sqrt(hd)
+    # (B, K, R, S, hd) queries and (B, K, S, hd) keys/values, in f32
+    qf = q.float().reshape(b, sq, kh, rep, hd).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)
+    vf = v.float().permute(0, 2, 1, 3)
+    out = torch.empty((b, kh, rep, sq, hd), dtype=torch.float32,
+                      device=q.device)
+    for q0 in range(0, sq, bq):
+        q1 = min(q0 + bq, sq)
+        row_lo = q0 + q_offset
+        qb = qf[:, :, :, q0:q1]
+        m = torch.full(qb.shape[:-1], ref.NEG, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qb)
+        for c0 in range(0, skv, bkv):
+            if not in_band(row_lo, row_lo + bq - 1, c0, c0 + bkv - 1,
+                           skv=skv, causal=causal, window=window):
+                continue
+            c1 = min(c0 + bkv, skv)
+            s = torch.einsum("bkrqh,bksh->bkrqs", qb,
+                             kf[:, :, c0:c1]) * scale
+            mask = ref.attention_mask(q1 - q0, c1 - c0, causal=causal,
+                                      window=window,
+                                      q_offset=row_lo - c0, device=q.device)
+            s = torch.where(mask, s, ref.NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkrqs,bksh->bkrqh", p, vf[:, :, c0:c1])
+            m = m_new
+        out[:, :, :, q0:q1] = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                         q_offset: int = 0):
+    """The CUDA kernel. q (B, Sq, H, hd), k/v (B, Skv, K, hd): contiguous
+    CUDA tensors of one float dtype (f32, bf16 or f16) on one device,
+    hd ∈ {64, 128}, H a multiple of K. Same output as
+    `flash_attention_plain`."""
+    if not isinstance(q, torch.Tensor) or q.dtype not in DTYPE_CODES:
+        raise ValueError("q must be a float32/bfloat16/float16 tensor")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_cuda_matrix(name, t, q.dtype, device=q.device)
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D (B, S, heads, hd), got "
+                             f"{tuple(t.shape)}")
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (b, skv, kh, hd) or v.shape != k.shape:
+        raise ValueError(f"k/v must be (B, Skv, K, hd) = "
+                         f"{(b, skv, kh, hd)}, got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if skv < 1:
+        raise ValueError("k/v must hold at least one position")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {hd}")
+    if kh < 1 or h % kh:
+        raise ValueError(f"query heads {h} not a multiple of kv heads {kh}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = build.library()
+    code = lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        DTYPE_CODES[q.dtype], b, sq, skv, h, kh, hd, int(bool(causal)),
+        int(window), int(q_offset),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    flash_attention_cuda.launches += 1
+    build.check(code, "flash_attention")
+    return out
+
+
+flash_attention_cuda.launches = 0

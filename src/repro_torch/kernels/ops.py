@@ -5,6 +5,8 @@
   * core/scoring.py  score_topk                              → select_topk
   * fl/engine.py     mix_tree (packed gossip plans)          → gossip_mix
   * fl/strategies.py stage_evolve_masks (dispfl)             → mask_evolve
+  * models/attention.py attend(backend="flash")              → flash_attention
+  * models/rwkv.py   rwkv_prefill(backend="flash")           → wkv
 
 Routing is by the device of the input, never by a fallback: a CUDA tensor
 reaches the CUDA kernel (or the kernel raises), a CPU tensor takes the
@@ -16,15 +18,19 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gossip_mix as _gm
 from repro_torch.kernels import mask_evolve as _me
 from repro_torch.kernels import peer_score as _ps
 from repro_torch.kernels import select_score as _ss
+from repro_torch.kernels import wkv_chunked as _wkv
 
-KERNELS = {"gossip_mix": _gm.gossip_mix_cuda,
+KERNELS = {"flash_attention": _fa.flash_attention_cuda,
+           "gossip_mix": _gm.gossip_mix_cuda,
            "mask_evolve": _me.mask_evolve_cuda,
            "raw_gram": _ps.raw_gram_cuda,
-           "select_topk": _ss.select_topk_cuda}
+           "select_topk": _ss.select_topk_cuda,
+           "wkv_chunked": _wkv.wkv_chunked_cuda}
 
 # Packing a gossip plan into neighbour lists pays on the CPU only from
 # this population size on (the reference's measured crossover, where its
@@ -117,3 +123,27 @@ def mask_evolve(x, grow, *, keep: int, impl: str | None = None):
     else:
         out, mask, _ = _me.mask_evolve_plain(x, grow, keep=keep)
     return out, mask
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0, impl: str | None = None):
+    """Blocked online-softmax attention: q (B, Sq, H, hd), k/v
+    (B, Skv, K, hd), GQA by h // (H/K) → (B, Sq, H, hd) in q.dtype."""
+    if _route(q, impl) == "cuda":
+        return _fa.flash_attention_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window, q_offset=q_offset)
+    return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+
+
+def wkv(r, k, v, w, u, state=None, *, impl: str | None = None):
+    """Chunked RWKV6 WKV: r/k/v (B, S, H, hd) in the model dtype, w f32
+    decays, u (H, hd) f32, state (B, H, hd, hd) f32 or None → (out in
+    r.dtype, final state f32)."""
+    if _route(r, impl) == "cuda":
+        return _wkv.wkv_chunked_cuda(
+            r.contiguous(), k.contiguous(), v.contiguous(),
+            w.float().contiguous(), u.float().contiguous(),
+            None if state is None else state.float().contiguous())
+    return _wkv.wkv_chunked_plain(r, k, v, w, u, state)

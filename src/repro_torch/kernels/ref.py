@@ -3,10 +3,14 @@
 These are the definitions of correctness the CUDA kernels are held to:
 `cosine_gram_ref` (Eq. 7), `select_score_ref` (dense masked Eq. 9),
 `select_topk_ref` (dense Eq. 9 then a stable top-k), `gossip_mix_ref`
-(dense sequential neighbour accumulation) and `mask_evolve_ref`
-(partition threshold, then drop and regrow).
+(dense sequential neighbour accumulation), `mask_evolve_ref`
+(partition threshold, then drop and regrow), `flash_attention_ref`
+(masked softmax attention) and `wkv_ref` (the per-token RWKV6
+recurrence).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -122,3 +126,81 @@ def mask_evolve_ref(x, grow, *, keep: int):
     thr = torch.kthvalue(flat, flat.numel() - keep + 1).values
     mask = (x.float().abs() >= thr) | grow
     return x * mask.to(x.dtype), mask
+
+
+def attention_mask(sq: int, skv: int, *, causal: bool, window: int,
+                   q_offset: int, device=None):
+    """(Sq, Skv) bool: key s is visible to query q (absolute row
+    q + q_offset) — causal: s ≤ row; window > 0: s > row − window."""
+    rows = torch.arange(sq, device=device)[:, None] + q_offset
+    cols = torch.arange(skv, device=device)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        ok &= cols <= rows
+    if window:
+        ok &= cols > rows - window
+    return ok
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
+    """Plain masked softmax attention (reference `flash_attention_ref`).
+
+    q: (B, Sq, H, hd); k/v: (B, Skv, K, hd) with H % K == 0 (query head h
+    reads kv head h // (H/K)) → (B, Sq, H, hd) in q.dtype. Scores, softmax
+    and the P·V product in float32; masked scores are NEG (−1e30)."""
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, kh, h // kh, hd)
+    scores = torch.einsum("bqkrh,bskh->bkrqs", qg, k.float()) * (
+        1.0 / math.sqrt(hd))
+    ok = attention_mask(sq, skv, causal=causal, window=window,
+                        q_offset=q_offset, device=q.device)
+    scores = torch.where(ok, scores, NEG)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkrqs,bskv->bqkrv", probs, v.float())
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def wkv_ref(r, k, v, w, u, state=None):
+    """The RWKV6 WKV recurrence one token at a time (reference `wkv_ref`).
+
+    r, k, v, w: (B, S, H, hd), w the per-step decay in (0, 1); u: (H, hd)
+    bonus; state (B, H, hd, hd) f32 or None (zeros). Per step, in f32:
+    out_t = r_t·(S + u⊙k_t v_tᵀ), S ← w_t⊙S + k_t v_tᵀ.
+    → (out (B, S, H, hd) in r.dtype, final state (B, H, hd, hd) f32)."""
+    b, s, h, hd = r.shape
+    st = (torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+          if state is None else state.float())
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    outs = []
+    for t in range(s):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        outs.append(torch.einsum("bhi,bhij->bhj", rf[:, t], st + uf * kv))
+        st = wf[:, t, :, :, None] * st + kv
+    out = torch.stack(outs, dim=1) if outs else torch.zeros_like(rf)
+    return out.to(r.dtype), st
+
+
+def ulp(x, dtype=torch.bfloat16):
+    """The spacing of `dtype` (bf16 or f16) values at |x|: one unit in
+    the last place of a value of that magnitude, as float32."""
+    mant = {torch.bfloat16: 7, torch.float16: 10}[dtype]
+    tiny = torch.finfo(dtype).tiny
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(tiny)))
+    return torch.exp2(e - mant)
+
+
+def within_ulps(got, want, n: int = 1, rel_atol: float = 1e-5) -> bool:
+    """Every element of `got` within n units in the last place of `want`'s
+    low-precision dtype (the larger magnitude of the pair sets the ulp),
+    plus rel_atol · max(1, max |want|): two routes that agree in f32 to
+    that absolute error and round once differ by at most one ulp, except
+    near zero, where cancellation leaves the f32 error larger than the
+    value's own ulp."""
+    g, w = got.float(), want.float()
+    scale = max(1.0, float(w.abs().max())) if w.numel() else 1.0
+    tol = n * ulp(torch.maximum(g.abs(), w.abs()), want.dtype) + \
+        rel_atol * scale
+    return bool(((g - w).abs() <= tol).all())

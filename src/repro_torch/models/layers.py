@@ -1,6 +1,10 @@
-"""Shared primitive layers (reference `repro.models.layers`), CNN subset."""
+"""Shared primitive layers (reference `repro.models.layers`): the CNN's
+GroupNorm and losses, and the dense/ssm LLM layers."""
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -36,3 +40,96 @@ def per_example_nll(logits, labels):
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
     return logz - gold
+
+
+# ---------------------------------------------------------------------------
+# LLM layers (reference `repro.models.layers`): init, norms, MLP, RoPE,
+# embedding. Weights are (d_in, d_out) as in the reference, applied as
+# x @ W; stacked layers carry a leading L axis.
+# ---------------------------------------------------------------------------
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def torch_dtype(name) -> torch.dtype:
+    """A config's dtype name (or a torch dtype) as a torch dtype."""
+    return name if isinstance(name, torch.dtype) else DTYPES[name]
+
+
+def normal(generator, shape, std: float, dtype, device):
+    """N(0, std²) draws from `generator` (in f32, then cast to dtype)."""
+    x = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return x.mul_(std).to(torch_dtype(dtype))
+
+
+def dense_init(generator, d_in: int, d_out: int, dtype, device, *,
+               scale: float = 1.0, lead=()):
+    """A (*lead, d_in, d_out) weight: std 0.02 (d_in^-½ for d_in ≤ 64),
+    times `scale` (reference `dense_init`; `lead` stacks layers)."""
+    std = scale * (0.02 if d_in > 64 else d_in ** -0.5)
+    return normal(generator, tuple(lead) + (d_in, d_out), std, dtype, device)
+
+
+def init_embed(generator, vocab: int, d_model: int, dtype, device):
+    return normal(generator, (vocab, d_model), 0.02, dtype, device)
+
+
+def embed_lookup(table, tokens):
+    return table[tokens.long()]
+
+
+def rms_norm(x, scale, eps: float = 1e-5):
+    """RMSNorm with the reference's cast order: f32 row statistics, the
+    multiplier and the gain (1 + scale) cast to x.dtype, (x·mult)·gain."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    mult = torch.rsqrt(var + eps).to(x.dtype)
+    gain = (1.0 + scale.float()).to(x.dtype)
+    return (x * mult) * gain
+
+
+def act_fn(name: str):
+    return {
+        "silu": torch.nn.functional.silu,
+        "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+        "relu": torch.relu,
+        "relu2": lambda x: torch.relu(x).square(),
+    }[name]
+
+
+def mlp(params, x, act="silu"):
+    """Gated MLP for one layer: wi/wg (d_model, d_ff), wo (d_ff, d_model)."""
+    h = x @ params["wi"]
+    g = x @ params["wg"]
+    return (act_fn(act)(g) * h) @ params["wo"]
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    """(head_dim/2,) f32 inverse frequencies θ^(−2i/hd), computed by numpy
+    in f32 exactly as the reference computes them (torch's f32 pow rounds
+    some of them differently)."""
+    exps = np.arange(0, head_dim // 2, dtype=np.float32) * 2.0 / head_dim
+    return torch.from_numpy(1.0 / (theta ** exps)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_freq_on(head_dim: int, theta: float, device):
+    """rope_frequencies, copied to `device` once: a copy from pageable host
+    memory to the card waits for the card, at every layer of every step."""
+    return rope_frequencies(head_dim, theta, device)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, hd); positions: (B, S) or (S,) integers. Rotates the
+    two halves of each head in f32, returns x.dtype."""
+    hd = x.shape[-1]
+    inv_freq = _inv_freq_on(hd, float(theta), x.device)
+    angles = positions.float()[..., None] * inv_freq      # (..., S, half)
+    if angles.dim() == 2:
+        angles = angles[None]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

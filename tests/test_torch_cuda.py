@@ -85,8 +85,9 @@ def test_kernels_count_launches_and_refuse_bad_input(cuda):
     last = torch.full((8, 8), -1, dtype=torch.int32, device=cuda)
     s_l = torch.rand(8, 8, device=cuda)
     ops.select_topk(x, last, s_l, 0, 1.0, k=3, alpha=ALPHA, lam=LAM)
-    assert ops.launch_counts() == {"gossip_mix": 0, "mask_evolve": 0,
-                                   "raw_gram": 1, "select_topk": 1}
+    assert ops.launch_counts() == {"flash_attention": 0, "gossip_mix": 0,
+                                   "mask_evolve": 0, "raw_gram": 1,
+                                   "select_topk": 1, "wkv_chunked": 0}
     from repro_torch.kernels.select_score import select_topk_cuda
 
     with pytest.raises(ValueError):
@@ -167,8 +168,9 @@ def test_new_kernels_count_launches_and_refuse_bad_input(cuda):
     ops.gossip_mix(x, idx, w)
     leaf = torch.randn(8, 33, device=cuda)
     ops.mask_evolve(leaf, torch.zeros_like(leaf, dtype=torch.bool), keep=100)
-    assert ops.launch_counts() == {"gossip_mix": 1, "mask_evolve": 1,
-                                   "raw_gram": 0, "select_topk": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "gossip_mix": 1,
+                                   "mask_evolve": 1, "raw_gram": 0,
+                                   "select_topk": 0, "wkv_chunked": 0}
     from repro_torch.kernels.gossip_mix import gossip_mix_cuda
     from repro_torch.kernels.mask_evolve import mask_evolve_cuda
 
@@ -180,3 +182,94 @@ def test_new_kernels_count_launches_and_refuse_bad_input(cuda):
     with pytest.raises(ValueError):
         mask_evolve_cuda(leaf, torch.zeros_like(leaf, dtype=torch.bool),
                          keep=0)
+
+
+# (B, Sq, Skv, H, K, hd, causal, window, q_offset)
+FLASH_CASES = [(2, 200, 200, 12, 2, 128, True, 0, 0),
+               (1, 77, 130, 4, 4, 64, True, 16, 53),
+               (1, 50, 90, 6, 3, 64, False, 0, 0),
+               (1, 33, 160, 6, 1, 128, True, 0, 127),
+               (1, 16, 16, 2, 2, 64, True, 4, -8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    """f32: within 1e-5 of max(1, max|out|); bf16: within one bf16 ulp
+    (plus 1e-5 of the scale near zero)."""
+    from repro_torch.kernels import ref
+
+    b, sq, skv, h, kh, hd, causal, window, q_offset = case
+    g = torch.Generator(device=cuda).manual_seed(sum(case))
+    q = torch.randn((b, sq, h, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, skv, kh, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, skv, kh, hd), generator=g, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ops.flash_attention(q, k, v, impl="plain", **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+    else:
+        assert ref.within_ulps(got, want)
+
+
+# (B, S, H, dtype, initial state, highest log-log decay)
+WKV_CASES = [(2, 150, 3, torch.float32, True, 1.0),
+             (1, 37, 2, torch.float32, False, -1.0),
+             (2, 200, 4, torch.bfloat16, True, -1.0),
+             (1, 5, 2, torch.float32, True, 1.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_wkv_chunked_kernel_matches_plain(cuda, case):
+    """Output within 1e-4 of max|out| (f32) or one bf16 ulp (bf16); final
+    state within 1e-5 of max|S|."""
+    from repro_torch.kernels import ref
+
+    b, s, h, dtype, state, hi = case
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    r, k, v = (torch.randn((b, s, h, 64), generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand((b, s, h, 64), generator=g,
+                                        device=cuda) * (hi + 6.0) - 6.0))
+    u = torch.randn((h, 64), generator=g, device=cuda) * 0.3
+    s0 = torch.randn((b, h, 64, 64), generator=g, device=cuda) if state \
+        else None
+    out, sf = ops.wkv(r, k, v, w, u, s0)
+    p_out, p_sf = ops.wkv(r, k, v, w, u, s0, impl="plain")
+    assert out.dtype == dtype and sf.dtype == torch.float32
+    if dtype == torch.float32:
+        assert float((out - p_out).abs().max()) <= \
+            1e-4 * float(p_out.abs().max())
+    else:
+        assert ref.within_ulps(out, p_out)
+    assert float((sf - p_sf).abs().max()) <= 1e-5 * float(p_sf.abs().max())
+
+
+@pytest.mark.cuda
+def test_serving_kernels_count_launches_and_refuse_bad_input(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.wkv_chunked import wkv_chunked_cuda
+
+    ops.reset_launch_counts()
+    q = torch.randn(1, 70, 4, 64, device=cuda)
+    ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    r = torch.randn(1, 70, 2, 64, device=cuda)
+    ops.wkv(r, r, r, torch.rand_like(r), torch.zeros(2, 64, device=cuda))
+    assert ops.launch_counts() == {"flash_attention": 1, "gossip_mix": 0,
+                                   "mask_evolve": 0, "raw_gram": 0,
+                                   "select_topk": 0, "wkv_chunked": 1}
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, q.half(), q)           # mixed dtypes
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q[..., :32].contiguous(),
+                             q[..., :32].contiguous(),
+                             q[..., :32].contiguous())   # head_dim 32
+    with pytest.raises(ValueError):
+        wkv_chunked_cuda(r, r, r, r.half(), torch.zeros(2, 64, device=cuda))
+    with pytest.raises(ValueError):
+        wkv_chunked_cuda(r, r, r, r, torch.zeros(3, 64, device=cuda))

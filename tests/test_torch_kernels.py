@@ -190,8 +190,12 @@ def test_plain_route_counts_no_launches():
                    torch.ones(4, 2))
     ops.mask_evolve(torch.ones(4, 3), torch.zeros(4, 3, dtype=torch.bool),
                     keep=5)
-    assert ops.launch_counts() == {"gossip_mix": 0, "mask_evolve": 0,
-                                   "raw_gram": 0, "select_topk": 0}
+    ops.flash_attention(torch.ones(1, 3, 2, 8), torch.ones(1, 3, 1, 8),
+                        torch.ones(1, 3, 1, 8))
+    ops.wkv(*(torch.ones(1, 3, 2, 8) for _ in range(4)), torch.ones(2, 8))
+    assert ops.launch_counts() == {"flash_attention": 0, "gossip_mix": 0,
+                                   "mask_evolve": 0, "raw_gram": 0,
+                                   "select_topk": 0, "wkv_chunked": 0}
 
 
 @pytest.mark.parametrize("k", [0, 6, 7])

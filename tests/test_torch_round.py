@@ -36,6 +36,7 @@ from repro_torch.core.scoring import flatten_headers
 from repro_torch.fl.engine import run_round
 from repro_torch.fl.simulator import run_experiment
 from repro_torch.kernels.ref import select_score_ref
+from repro_torch.launch.serve import main as serve_main
 from repro_torch.optim.sgd import sgd
 
 from test_torch_support import reference_draws, to_numpy, to_torch
@@ -198,12 +199,19 @@ def _entry_points(cfg):
             state["header"]),
         "population_from_reference": lambda: (
             convert.population_from_reference(state)),
+        "params_from_reference[dense]": lambda: (
+            convert.params_from_reference(
+                {"lm_head": np.zeros((4, 8), np.float32)}, family="dense")),
+        "serve.main": lambda: serve_main(["--arch", "qwen2-1.5b",
+                                          "--reduced", "--gen", "1"]),
     }
 
 
 @pytest.mark.parametrize("entry", ["run_experiment", "make_strategy",
                                    "params_from_reference",
-                                   "population_from_reference"])
+                                   "population_from_reference",
+                                   "params_from_reference[dense]",
+                                   "serve.main"])
 def test_entry_point_without_device_needs_cuda(setup, monkeypatch, entry):
     """Called without device=, the port asks for CUDA and raises where
     there is none, instead of running on the CPU."""
