@@ -7,6 +7,11 @@ Phases, each of which fails the script (non-zero exit) on any fault:
 
 1. build    nvcc builds the port's CUDA kernels from `src/repro_torch/csrc`
             for sm_90a (timed); TF32 is switched off for matmuls and cuDNN.
+            The ptxas report (registers, spills, wgmma serialisation) and
+            the HGMMA (wgmma) instructions of each flash kernel instance in
+            the library's SASS (cuobjdump) are printed: evidence that the
+            bf16/f16 route reaches the tensor cores (fails if one holds
+            none).
 2. kernels  each kernel against its plain PyTorch version on the card, at
             the rounds' shapes and at population scale. Times by CUDA
             events after warm-up.
@@ -15,18 +20,25 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             exact (a flip is allowed only between scores within 1e-5
             relative, and is counted), values rtol 1e-4, row stats rtol
             1e-4 + atol 1e-6·M (sums of M cosines).
-            raw_gram: error ≤ 1e-4 × the largest entry (fp32 sums of P
-            products in another order).
+            raw_gram (M=16, 1024, 4096; P=5130): error ≤ 1e-4 × the
+            largest entry (fp32 sums of P products in another order), a
+            second launch bitwise equal (split-K sums its splits in a fixed
+            order), the split count, and besides the per-call time the
+            device time from CUDA-graph replay, for torch.matmul too.
             gossip_mix (a dfedpgp plan at M=16, F=11,167,040 — the
             ResNet-18 extractor — D=5; M=1024, F=65,536, D=11): bitwise.
             mask_evolve (the dispfl round's largest and smallest stacked
             leaves, 16×2,359,296 and 16×10 in bf16, and 16×64; keep = n/2,
             regrow 0.02): threshold, mask and output bits equal.
-            flash_attention (qwen2-1.5b prefill: q (4, 4096, 12, 128), k/v
-            (4, 4096, 2, 128) bf16, causal: within one bf16 ulp; f32 cases
-            with rep 1 and 6, hd 64 and 128, ragged lengths, a window and a
-            q_offset: within 1e-5·max(1, max|out|); the prefill_32k shape
-            (1, 32768, 12/2, 128), kernel and library times only).
+            flash_attention, each case through its dtype's route (bf16 and
+            f16: the wgmma kernel; f32: the FFMA kernel; the route counters
+            must show it): qwen2-1.5b prefill, q (4, 4096, 12, 128), k/v
+            (4, 4096, 2, 128) bf16, causal, within one bf16 ulp, SDPA
+            beside it; five ragged cases (rep 1 and 6, hd 64 and 128,
+            ragged lengths, a window, a q_offset, not causal) in f32
+            (within 1e-5·max(1, max|out|)), bf16 and f16 (within one ulp of
+            the dtype); the prefill_32k shape (1, 32768, 12/2, 128), kernel
+            and library times only).
             wkv_chunked (rwkv6-7b prefill: B=4, S=4096, H=64, hd=64, r/k/v
             bf16, w = exp(−exp(U[−6, −1])) f32: one bf16 ulp; an f32 case
             with strong decay, S = 4096 + 37 and a nonzero initial state:
@@ -51,8 +63,9 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             rwkv6-7b at full width and depth in bf16 with random weights:
             batch 4, prompt 4096, 32 greedy tokens, 3 requests each, the
             launch counters set to 0 just before each: flash_attention must
-            run once per layer per request (28 × 3), wkv_chunked likewise
-            (32 × 3); logits finite, tokens inside the vocabulary.
+            run once per layer per request (28 × 3), all on the wgmma
+            route, wkv_chunked likewise (32 × 3); logits finite, tokens
+            inside the vocabulary.
 4. agree    at a small f32 size, the card against the CPU (plain versions,
             the path the CPU tests hold to the JAX reference) from the same
             parameters and draws: pfeddst and pfeddst_random selection
@@ -85,9 +98,9 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
-# bf16 on the tensor cores, HBM3
+# bf16 and fp16 on the tensor cores, HBM3
 FP32_FLOPS = 67e12
-BF16_FLOPS = 989e12
+TENSOR_16BIT_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 BASELINE_LR = 0.01   # the six baselines' SGD rate in phase 3 (see there)
 
@@ -120,6 +133,40 @@ def bound(bytes_moved: float, flops: float, peak: float = FP32_FLOPS):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tensor_core_evidence(so) -> dict:
+    """HGMMA (wgmma) instructions in each flash kernel instance of the
+    built library's SASS, by the cuobjdump next to nvcc. Fails if there is
+    no cuobjdump or a wgmma instance holds none."""
+    import re
+
+    from repro_torch.kernels import build
+
+    cuobj = Path(build.nvcc_path()).parent / "cuobjdump"
+    if not cuobj.exists():
+        raise FileNotFoundError(f"{cuobj} not found: the SASS of the flash "
+                                "kernels cannot be read")
+    sass = subprocess.run([cuobj, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_(wgmma|ffma)_kernelI(?:Lb([01])E)?Li(\d+)E",
+                          line)
+            name = None
+            if m is not None:
+                kind, is_bf16, hd = m.groups()
+                dtype = "" if kind == "ffma" else (
+                    "bf16 " if is_bf16 == "1" else "f16 ")
+                name = f"{kind} {dtype}hd{hd}"
+                counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    wgmma = {k: n for k, n in counts.items() if k.startswith("wgmma")}
+    if not wgmma or not all(wgmma.values()):
+        raise AssertionError(f"no HGMMA in the wgmma flash kernels: {counts}")
+    return {"cuobjdump": str(cuobj), "hgmma": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -185,12 +232,36 @@ def check_select(ops, ref, case, k, iters):
                 library_ms=None)
 
 
+def graph_ms(fn, reps: int, per_graph: int = 20) -> float:
+    """Device time of one call of `fn`: `per_graph` calls captured in a
+    CUDA graph and replayed, so the host's per-call overhead is left out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    return time_ms(graph.replay, max(1, reps // per_graph)) / per_graph
+
+
 def check_gram(ops, m, p, seed, dev, iters):
+    """raw_gram against the plain version (≤ 1e-4 × the largest entry),
+    a second launch bitwise equal to the first (split-K sums the splits in
+    a fixed order), times per call and, from CUDA-graph replay, on the
+    device alone, beside torch.matmul's."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((m, p), generator=g, device=dev)
     got = ops.raw_gram(x, impl="cuda")
+    # the (tile, splits, chunk) the wrapper passed to the kernel
+    tile, splits, chunk = ops.KERNELS["raw_gram"].last_plan
+    again = ops.raw_gram(x, impl="cuda")
     want = ops.raw_gram(x, impl="plain")
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -198,13 +269,20 @@ def check_gram(ops, m, p, seed, dev, iters):
     if not err <= 1e-4 * scale:
         raise AssertionError(f"raw_gram M={m}: max error {err} > 1e-4 × "
                              f"{scale}")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"raw_gram M={m}: two launches differ")
     ms = time_ms(lambda: ops.raw_gram(x, impl="cuda"), iters)
     plain_ms = time_ms(lambda: ops.raw_gram(x, impl="plain"), iters)
     library_ms = time_ms(lambda: torch.matmul(x, x.T), iters)
     b_ms, b_by = bound(m * p * 4 + m * m * 4, 2.0 * m * m * p)
-    return dict(m=m, p=p, max_abs_err=err, rel_err=err / scale, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms)
+    return dict(m=m, p=p, tile=tile, splits=splits, chunk=chunk,
+                bitwise_repeat=True, max_abs_err=err, rel_err=err / scale,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms,
+                device_ms=graph_ms(lambda: ops.raw_gram(x, impl="cuda"),
+                                   iters),
+                library_device_ms=graph_ms(lambda: torch.matmul(x, x.T),
+                                           iters))
 
 
 def gossip_case(m, f, k, n_active, seed, dev):
@@ -309,9 +387,12 @@ def visible_pairs(sq, skv, *, causal, window, q_offset) -> int:
 
 def check_flash(ops, ref, case, dtype, dev, iters, *, plain=True,
                 library=False):
-    """One flash_attention case: kernel against the plain version (f32:
-    1e-5·max(1, max|out|); bf16: one ulp), times, and the bound."""
+    """One flash_attention case: the kernel of its dtype's route (bf16,
+    f16: wgmma; f32: FFMA) against the plain version (f32: 1e-5·max(1,
+    max|out|); bf16, f16: one ulp), times, and the bound."""
     import torch
+
+    from repro_torch.kernels import flash_attention as fa
 
     b, sq, skv, h, kh, hd, causal, window, q_offset = case
     g = torch.Generator(device=dev).manual_seed(sum(case))
@@ -319,11 +400,18 @@ def check_flash(ops, ref, case, dtype, dev, iters, *, plain=True,
     k = torch.randn((b, skv, kh, hd), generator=g, device=dev).to(dtype)
     v = torch.randn((b, skv, kh, hd), generator=g, device=dev).to(dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
+    routes = fa.flash_attention_cuda.route_launches
+    before = dict(routes)
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
+    route = [r for r in routes if routes[r] != before[r]]
+    if route != [fa.ROUTES[dtype]]:
+        raise AssertionError(f"flash_attention {case} {dtype}: launched "
+                             f"{route}, expected {fa.ROUTES[dtype]}")
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"flash_attention {case}: output not finite")
-    row = dict(shape=list(case), dtype=str(dtype).split(".")[-1])
+    row = dict(shape=list(case), dtype=str(dtype).split(".")[-1],
+               route=route[0])
     if plain:
         want = ops.flash_attention(q, k, v, impl="plain", **kw)
         torch.cuda.synchronize()
@@ -356,10 +444,13 @@ def check_flash(ops, ref, case, dtype, dev, iters, *, plain=True,
             iters, warmup=1)
     flops = 4.0 * b * h * hd * visible_pairs(sq, skv, **kw)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    peak = FP32_FLOPS if dtype == torch.float32 else TENSOR_16BIT_FLOPS
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peak)
     row["fp32_ffma_bound_ms"], _ = bound(nbytes, flops, FP32_FLOPS)
     row["tflops"] = flops / row["ms"] / 1e9
+    if row["route"] == "wgmma":
+        # what the tensor cores do: S = Q·Kᵀ once, P·V twice (hi and lo)
+        row["tflops_tensor_work"] = 1.5 * row["tflops"]
     return row
 
 
@@ -528,6 +619,7 @@ def run_serve(arch, dev, ops):
                                 gen_tokens=SERVE_GEN)
     total = time.perf_counter() - t0
     launches = ops.launch_counts()
+    flash_routes = dict(ops.KERNELS["flash_attention"].route_launches)
     kernel = SERVE_ARCHS[arch]
     want = {name: (cfg.num_layers * SERVE_REQUESTS if name == kernel else 0)
             for name in SERVE_ARCHS.values()}
@@ -535,6 +627,8 @@ def run_serve(arch, dev, ops):
     if got != want:
         raise AssertionError(f"{arch}: serving launches {got}, expected "
                              f"{want}")
+    if flash_routes["ffma"]:      # bf16 serving takes the wgmma kernel
+        raise AssertionError(f"{arch}: flash routes {flash_routes}")
     if not all(stats["logits_finite"]):
         raise AssertionError(f"{arch}: logits not finite "
                              f"{stats['logits_finite']}")
@@ -550,7 +644,8 @@ def run_serve(arch, dev, ops):
     pre, dec = st["prefill"], st["decode"]
     return dict(
         arch=arch, params=n_params, init_s=init_s, total_s=total,
-        launches=launches, requests_s=stats["requests"],
+        launches=launches, flash_routes=flash_routes,
+        requests_s=stats["requests"],
         prefill_first_s=pre["first_s"], prefill_steady_s=pre["steady_s"],
         decode_first_s=dec["first_s"], decode_steady_s=dec["steady_s"],
         prefill_tok_per_s=SERVE_BATCH * SERVE_PROMPT / pre["steady_s"],
@@ -787,8 +882,12 @@ def main() -> int:
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {so.name}", flush=True)
     for line in build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line \
+                or "Performance Loss" in line:
             print("  ptxas:", line.strip())
+    evidence = tensor_core_evidence(so)
+    print("flash_attention tensor cores (SASS HGMMA per instance):",
+          json.dumps(evidence), flush=True)
 
     walls["1 build"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -840,7 +939,8 @@ def main() -> int:
                  (1, 900, 900, 6, 1, 64, True, 256, 0),      # rep 6, window
                  (1, 333, 1055, 8, 4, 128, True, 200, 722),  # all of them
                  (2, 500, 700, 4, 2, 64, False, 0, 0)):      # not causal
-        flashes.append(check_flash(ops, ref, case, torch.float32, dev, 5))
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            flashes.append(check_flash(ops, ref, case, dtype, dev, 5))
     flashes.append(check_flash(ops, ref, (1, 32768, 32768, 12, 2, 128, True,
                                           0, 0), torch.bfloat16, dev, 3,
                                plain=False, library=True))
@@ -952,6 +1052,13 @@ def main() -> int:
     # ---- output -------------------------------------------------------------
     k_main = main_sel[0]
     g_main = grams[0]
+    # the route each dtype's flash cases reached (route_launches)
+    flash_routes = {}
+    for row in flashes:
+        if flash_routes.setdefault(row["dtype"], row["route"]) != row["route"]:
+            raise AssertionError(f"flash_attention {row['dtype']} reached "
+                                 f"{flash_routes[row['dtype']]} and "
+                                 f"{row['route']}")
     kernels = [
         {"name": "select_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/select_topk.cu",
@@ -964,6 +1071,7 @@ def main() -> int:
         {"name": "raw_gram", "route": "cuda",
          "source": "src/repro_torch/csrc/raw_gram.cu",
          "replaces": "src/repro/kernels/peer_score.py:83",
+         "splits": g_main["splits"],
          "launches": launches["raw_gram"],
          "max_abs_err": g_main["max_abs_err"],
          "ms": g_main["ms"], "plain_ms": g_main["plain_ms"],
@@ -989,6 +1097,7 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:112",
+         "routes": flash_routes,
          "launches": launches["flash_attention"],
          "max_abs_err": flashes[0]["max_abs_err"],
          "ms": flashes[0]["ms"], "plain_ms": flashes[0]["plain_ms"],

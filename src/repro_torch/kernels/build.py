@@ -34,7 +34,12 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # c_void_p so ctypes never truncates them to 32 bits). All return the
 # cudaError_t of the launch as an int.
 SIGNATURES = {
-    "repro_flash_attention": [
+    "repro_flash_attention_f32": [
+        c_void_p, c_void_p, c_void_p, c_void_p,          # q k v out
+        c_int, c_int, c_int, c_int, c_int, c_int,        # b sq skv h kh hd
+        c_int, c_int, c_int, c_void_p,                   # causal window
+    ],                                                   # q_offset stream
+    "repro_flash_attention_wgmma": [
         c_void_p, c_void_p, c_void_p, c_void_p, c_int,   # q k v out dtype
         c_int, c_int, c_int, c_int, c_int, c_int,        # b sq skv h kh hd
         c_int, c_int, c_int, c_void_p,                   # causal window
@@ -49,7 +54,10 @@ SIGNATURES = {
         c_void_p, c_void_p, c_void_p, c_void_p,          # counts out mask thr
         c_void_p,                                        # stream
     ],
-    "repro_raw_gram_f32": [c_void_p, c_void_p, c_int, c_int, c_void_p],
+    "repro_raw_gram_f32": [
+        c_void_p, c_void_p, c_void_p,                    # x out work
+        c_int, c_int, c_int, c_int, c_int, c_void_p,     # m p tile splits
+    ],                                                   # chunk stream
     "repro_select_topk_f32": [
         c_void_p, c_void_p, c_void_p, c_void_p, c_int,   # x inv last sl t
         c_void_p, c_float, c_void_p,                     # cost cost_s cand

@@ -4,10 +4,14 @@
 Causal and sliding-window masks, a query offset, and GQA (query head h
 reads kv head h // (H/K)) on q (B, Sq, H, hd) and k/v (B, Skv, K, hd);
 the running max m, sum l and accumulator stay in f32 and the output is in
-q's dtype. `flash_attention_cuda` launches the hand-written CUDA kernel
-(`csrc/flash_attention.cu`, which replaces the Pallas `flash_attention`);
-`flash_attention_plain` is its plain PyTorch version: the Pallas body over
-(q block, kv block) pairs, skipping kv blocks wholly outside the band.
+q's dtype. `flash_attention_cuda` launches one of the two hand-written
+CUDA kernels of `csrc/flash_attention.cu` (which replaces the Pallas
+`flash_attention`), chosen by dtype in `ROUTES`: bf16 and f16 take the
+tensor-core kernel (wgmma fed by TMA, P split into hi + lo parts of the
+input type so P·V keeps f32-level precision), f32 the fp32 FFMA kernel.
+`flash_attention_plain` is their plain PyTorch version: the Pallas body
+over (q block, kv block) pairs, skipping kv blocks wholly outside the
+band.
 """
 from __future__ import annotations
 
@@ -19,7 +23,10 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.peer_score import check_cuda_matrix
 
 BLOCK = 128               # the Pallas kernel's default q and kv block
-HEAD_DIMS = (64, 128)     # the CUDA kernel's instances
+HEAD_DIMS = (64, 128)     # the CUDA kernels' instances
+# dtype -> the kernel that takes it: the one place the route is chosen
+ROUTES = {torch.float32: "ffma", torch.bfloat16: "wgmma",
+          torch.float16: "wgmma"}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -83,11 +90,11 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          q_offset: int = 0):
-    """The CUDA kernel. q (B, Sq, H, hd), k/v (B, Skv, K, hd): contiguous
-    CUDA tensors of one float dtype (f32, bf16 or f16) on one device,
-    hd ∈ {64, 128}, H a multiple of K. Same output as
-    `flash_attention_plain`."""
-    if not isinstance(q, torch.Tensor) or q.dtype not in DTYPE_CODES:
+    """The CUDA kernel of q's dtype (`ROUTES`). q (B, Sq, H, hd), k/v
+    (B, Skv, K, hd): contiguous CUDA tensors of one float dtype (f32, bf16
+    or f16) on one device (bf16/f16 16-byte aligned), hd ∈ {64, 128}, H a
+    multiple of K. Same output as `flash_attention_plain`."""
+    if not isinstance(q, torch.Tensor) or q.dtype not in ROUTES:
         raise ValueError("q must be a float32/bfloat16/float16 tensor")
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_cuda_matrix(name, t, q.dtype, device=q.device)
@@ -112,16 +119,24 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    route = ROUTES[q.dtype]
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned (TMA)")
     lib = build.library()
-    code = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        DTYPE_CODES[q.dtype], b, sq, skv, h, kh, hd, int(bool(causal)),
-        int(window), int(q_offset),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    args = (b, sq, skv, h, kh, hd, int(bool(causal)), int(window),
+            int(q_offset), torch.cuda.current_stream(q.device).cuda_stream)
+    if route == "wgmma":
+        code = lib.repro_flash_attention_wgmma(*ptrs, DTYPE_CODES[q.dtype],
+                                               *args)
+    else:
+        code = lib.repro_flash_attention_f32(*ptrs, *args)
     flash_attention_cuda.launches += 1
-    build.check(code, "flash_attention")
+    flash_attention_cuda.route_launches[route] += 1
+    build.check(code, f"flash_attention ({route})")
     return out
 
 
 flash_attention_cuda.launches = 0
+# launches by route, for showing which kernel a dtype reached
+flash_attention_cuda.route_launches = {"ffma": 0, "wgmma": 0}

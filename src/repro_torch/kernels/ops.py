@@ -47,6 +47,8 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+        for route in getattr(fn, "route_launches", {}):
+            fn.route_launches[route] = 0
 
 
 def _route(x, impl):

@@ -47,6 +47,21 @@ def test_raw_gram_kernel_matches_plain(cuda, m, p):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,p", [(16, 5130), (17, 5131), (100, 5130),
+                                 (1024, 700)])
+def test_raw_gram_kernel_is_bitwise_repeatable(cuda, m, p):
+    """Split-K without float atomics: two launches agree bitwise, with
+    several splits (M < 1024) and with one (M = 1024)."""
+    from repro_torch.kernels.peer_score import gram_split_plan
+
+    assert (gram_split_plan(m, p)[1] == 1) == (m >= 1024)
+    x = torch.randn(m, p, device=cuda)
+    a, b = ops.raw_gram(x), ops.raw_gram(x)
+    assert ops.KERNELS["raw_gram"].last_plan == gram_split_plan(m, p)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,k", [(5, 4), (16, 4), (37, 10), (700, 10),
                                  (2100, 32)])
 @pytest.mark.parametrize("matrix_cost,cand", [(False, False), (True, True)])
@@ -194,9 +209,11 @@ FLASH_CASES = [(2, 200, 200, 12, 2, 128, True, 0, 0),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FLASH_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
-    """f32: within 1e-5 of max(1, max|out|); bf16: within one bf16 ulp
+    """f32 (FFMA kernel): within 1e-5 of max(1, max|out|); bf16 and f16
+    (wgmma kernel, P split into hi + lo): within one ulp of the dtype
     (plus 1e-5 of the scale near zero)."""
     from repro_torch.kernels import ref
 
@@ -214,6 +231,27 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
         assert float((got - want).abs().max()) <= 1e-5 * scale
     else:
         assert ref.within_ulps(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_routes_by_dtype(cuda):
+    """bf16 and f16 reach the wgmma kernel, f32 the FFMA kernel; the
+    wgmma kernel refuses a tensor TMA cannot address instead of handing
+    it to another kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    ops.reset_launch_counts()
+    q = torch.randn(1, 70, 4, 64, device=cuda)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        t = q.to(dtype)
+        ops.flash_attention(t, t[:, :, :2], t[:, :, :2])
+    assert flash_attention_cuda.route_launches == {"ffma": 1, "wgmma": 2}
+    assert ops.launch_counts()["flash_attention"] == 3
+    flat = torch.randn(70 * 4 * 64 + 1, device=cuda).to(torch.bfloat16)
+    odd = flat[1:].view(1, 70, 4, 64)                  # 2-byte aligned
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_cuda(odd, odd, odd)
+    assert flash_attention_cuda.route_launches == {"ffma": 1, "wgmma": 2}
 
 
 # (B, S, H, dtype, initial state, highest log-log decay)
