@@ -11,7 +11,8 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             the HGMMA (wgmma) instructions of each flash kernel instance in
             the library's SASS (cuobjdump) are printed: evidence that the
             bf16/f16 route reaches the tensor cores (fails if one holds
-            none).
+            none). The ptxas lines (registers, spills) of the two
+            wkv_chunked kernels are printed apart (fails if one is missing).
 2. kernels  each kernel against its plain PyTorch version on the card, at
             the rounds' shapes and at population scale. Times by CUDA
             events after warm-up.
@@ -39,10 +40,17 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             (within 1e-5·max(1, max|out|)), bf16 and f16 (within one ulp of
             the dtype); the prefill_32k shape (1, 32768, 12/2, 128), kernel
             and library times only).
-            wkv_chunked (rwkv6-7b prefill: B=4, S=4096, H=64, hd=64, r/k/v
-            bf16, w = exp(−exp(U[−6, −1])) f32: one bf16 ulp; an f32 case
-            with strong decay, S = 4096 + 37 and a nonzero initial state:
-            output within 1e-4·max|out|, state within 1e-5·max|S|).
+            wkv_chunked, its two kernels (state pass, output pass) per call
+            (rwkv6-7b prefill: B=4, S=4096, H=64, hd=64, r/k/v bf16,
+            w = exp(−exp(U[−6, −1])) f32: one bf16 ulp; an f32 case with
+            strong decay, S = 4096 + 37 and a nonzero initial state: output
+            within 1e-4·max|out|, state within 1e-5·max|S|, against the
+            plain version; f32 and bf16 cases with w = 0 in a quarter of the
+            channels and w down to e^{−90}, at the same tolerances against
+            the per-token recurrence `ref.wkv_ref`: there the plain
+            version's exp of log-w prefix-sum differences lies beyond
+            them, the kernel's products of w do not; the plain version's
+            distance is printed).
 3. path     `run_experiment` for every ported strategy on full-width
             ResNet-18 in bf16 at the paper-scale settings of
             examples/fl_cifar_sim.py (M=16, 4 peers, batch 128, ratio 0.25,
@@ -65,7 +73,11 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             launch counters set to 0 just before each: flash_attention must
             run once per layer per request (28 × 3), all on the wgmma
             route, wkv_chunked likewise (32 × 3); logits finite, tokens
-            inside the vocabulary.
+            inside the vocabulary. After the rwkv6-7b requests, one more
+            steady prefill of the same model and prompts runs under
+            torch.profiler: wkv_chunked's share of device time, the device
+            idle share and the top kernels (chiprun_out/
+            chip_smoke_rwkv_prefill_profile.txt).
 4. agree    at a small f32 size, the card against the CPU (plain versions,
             the path the CPU tests hold to the JAX reference) from the same
             parameters and draws: pfeddst and pfeddst_random selection
@@ -98,9 +110,10 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
-# bf16 and fp16 on the tensor cores, HBM3
+# bf16 and fp16 and TF32 on the tensor cores, HBM3
 FP32_FLOPS = 67e12
 TENSOR_16BIT_FLOPS = 989e12
+TENSOR_TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 BASELINE_LR = 0.01   # the six baselines' SGD rate in phase 3 (see there)
 
@@ -135,10 +148,15 @@ def bound(bytes_moved: float, flops: float, peak: float = FP32_FLOPS):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+WKV_KERNELS = ("wkv_state_kernel", "wkv_output_kernel")
+
+
 def tensor_core_evidence(so) -> dict:
-    """HGMMA (wgmma) instructions in each flash kernel instance of the
+    """HGMMA (wgmma) instructions in each flash kernel instance and HMMA
+    (mma.sync) instructions in each wkv_chunked kernel instance of the
     built library's SASS, by the cuobjdump next to nvcc. Fails if there is
-    no cuobjdump or a wgmma instance holds none."""
+    no cuobjdump, a wgmma instance holds no HGMMA, or one of the two wkv
+    kernels is missing or an instance of it holds no HMMA."""
     import re
 
     from repro_torch.kernels import build
@@ -149,24 +167,34 @@ def tensor_core_evidence(so) -> dict:
                                 "kernels cannot be read")
     sass = subprocess.run([cuobj, "-sass", str(so)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    counts, name = {}, None
+    wkv_dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+    counts, hmma, name, op = {}, {}, None, None
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"flash_(wgmma|ffma)_kernelI(?:Lb([01])E)?Li(\d+)E",
                           line)
-            name = None
+            mw = re.search(r"(wkv_(?:state|output)_kernel)I([^E]*)E", line)
+            name = op = None
             if m is not None:
                 kind, is_bf16, hd = m.groups()
                 dtype = "" if kind == "ffma" else (
                     "bf16 " if is_bf16 == "1" else "f16 ")
-                name = f"{kind} {dtype}hd{hd}"
-                counts[name] = 0
-        elif name and "HGMMA" in line:
-            counts[name] += 1
+                name, op, table = f"{kind} {dtype}hd{hd}", "HGMMA", counts
+            elif mw is not None:
+                kind, arg = mw.groups()
+                name = f"{kind} {wkv_dtypes.get(arg, arg)}"
+                op, table = "HMMA", hmma
+            if name is not None:
+                table[name] = 0
+        elif name and op in line:
+            table[name] += 1
     wgmma = {k: n for k, n in counts.items() if k.startswith("wgmma")}
     if not wgmma or not all(wgmma.values()):
         raise AssertionError(f"no HGMMA in the wgmma flash kernels: {counts}")
-    return {"cuobjdump": str(cuobj), "hgmma": counts}
+    if not all(any(k.startswith(w) for k in hmma) for w in WKV_KERNELS) \
+            or not all(hmma.values()):
+        raise AssertionError(f"wkv kernels missing or without HMMA: {hmma}")
+    return {"cuobjdump": str(cuobj), "hgmma": counts, "wkv_hmma": hmma}
 
 
 # ---------------------------------------------------------------------------
@@ -463,10 +491,16 @@ def wkv_ops(b, s, h, hd) -> float:
 
 
 def check_wkv(ops, ref, b, s, h, dtype, hi, state, dev, iters,
-              plain_iters):
+              plain_iters, *, zero_w=False):
     """One wkv_chunked case: kernel against the plain version (output
-    1e-4·max|out| at f32 or one bf16 ulp; state 1e-5·max|S|), times, and
-    the bound. w = exp(−exp(U[−6, hi]))."""
+    1e-4·max|out| at f32 or one ulp at bf16 and f16; state 1e-5·max|S|),
+    times, and the bound at the TF32 tensor peak (the fp32 FFMA bound
+    beside it).
+    w = exp(−exp(U[−6, hi])); `zero_w` sets w = 0 in a quarter of the
+    channels, and the kernel is then held at the same tolerances to the
+    per-token recurrence `ref.wkv_ref` instead: there the plain version
+    (exps of log-w prefix-sum differences, |cum| up to 64·87.5) is itself
+    further from it than these tolerances (its distance is printed)."""
     import torch
 
     hd = 64
@@ -475,32 +509,46 @@ def check_wkv(ops, ref, b, s, h, dtype, hi, state, dev, iters,
                for _ in range(3))
     w = torch.exp(-torch.exp(torch.rand((b, s, h, hd), generator=g,
                                         device=dev) * (hi + 6.0) - 6.0))
+    if zero_w:
+        w[..., ::4] = 0.0
     u = torch.randn((h, hd), generator=g, device=dev) * 0.3
     s0 = torch.randn((b, h, hd, hd), generator=g, device=dev) if state \
         else None
     out, sf = ops.wkv(r, k, v, w, u, s0)
     p_out, p_sf = ops.wkv(r, k, v, w, u, s0, impl="plain")
+    want, want_s = (ref.wkv_ref(r, k, v, w, u, s0) if zero_w
+                    else (p_out, p_sf))
     torch.cuda.synchronize()
-    err = float((out.float() - p_out.float()).abs().max())
-    s_err = float((sf - p_sf).abs().max())
-    s_scale = float(p_sf.abs().max())
-    ok = (err <= 1e-4 * float(p_out.abs().max())
-          if dtype == torch.float32 else ref.within_ulps(out, p_out))
+    err = float((out.float() - want.float()).abs().max())
+    s_err = float((sf - want_s).abs().max())
+    s_scale = float(want_s.abs().max())
+    ok = (err <= 1e-4 * float(want.abs().max())
+          if dtype == torch.float32 else ref.within_ulps(out, want))
     if not ok or not s_err <= 1e-5 * s_scale:
-        raise AssertionError(f"wkv_chunked B={b} S={s} H={h} {dtype}: "
-                             f"output error {err}, state error {s_err} "
-                             f"(state scale {s_scale})")
+        raise AssertionError(f"wkv_chunked B={b} S={s} H={h} {dtype} "
+                             f"zero_w={zero_w}: output error {err}, state "
+                             f"error {s_err} (state scale {s_scale})")
+    extra = {}
+    if zero_w:
+        extra = dict(
+            held_to="ref.wkv_ref",
+            plain_vs_oracle_rel_err=float(
+                (p_out.float() - want.float()).abs().max()
+                / want.float().abs().max()),
+            plain_vs_oracle_state_rel_err=float(
+                (p_sf - want_s).abs().max()) / s_scale)
     ms = time_ms(lambda: ops.wkv(r, k, v, w, u, s0), iters, warmup=1)
     plain_ms = time_ms(lambda: ops.wkv(r, k, v, w, u, s0, impl="plain"),
                        plain_iters, warmup=1)
     nbytes = 4 * r.numel() * r.element_size() + w.numel() * 4 + \
         u.numel() * 4 + (2 if state else 1) * b * h * hd * hd * 4
-    b_ms, b_by = bound(nbytes, wkv_ops(b, s, h, hd))
+    b_ms, b_by = bound(nbytes, wkv_ops(b, s, h, hd), TENSOR_TF32_FLOPS)
+    ffma_ms, _ = bound(nbytes, wkv_ops(b, s, h, hd))
     return dict(b=b, s=s, h=h, hd=hd, dtype=str(dtype).split(".")[-1],
-                w_min=float(w.min()), state=state, max_abs_err=err,
-                state_err=s_err, state_scale=s_scale, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                w_min=float(w.min()), state=state, zero_w=zero_w,
+                max_abs_err=err, state_err=s_err, state_scale=s_scale,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                fp32_ffma_bound_ms=ffma_ms, library_ms=None, **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -586,10 +634,52 @@ SERVE_ARCHS = {"qwen2-1.5b": "flash_attention", "rwkv6-7b": "wkv_chunked"}
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_REQUESTS = 4, 4096, 32, 3
 
 
+def profile_prefill(cfg, params, prompts, dev):
+    """One steady prefill of `prompts` under torch.profiler: wall, device
+    kernel time, the device's idle share, wkv_chunked's share of the
+    device time and the top kernels (the table goes to chiprun_out/)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import make_serving_fns
+
+    prefill_fn, _ = make_serving_fns(cfg, prompt_len=SERVE_PROMPT,
+                                     gen_tokens=SERVE_GEN)
+    prefill_fn(params, prompts)                  # warm, as the steady ones
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill_fn(params, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in events)
+    wkv_us = sum(e.self_device_time_total for e in events
+                 if any(k in e.key for k in WKV_KERNELS))
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:12]
+    lines = [f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  "
+             f"{e.key[:100]}" for e in top]
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_rwkv_prefill_profile.txt").write_text(
+        f"{card_line()}\n{cfg.name} prefill B={SERVE_BATCH} "
+        f"S={SERVE_PROMPT}: wall {wall:.4f} s, device {dev_us / 1e6:.4f} s"
+        f"\n" + "\n".join(lines) + "\n")
+    return dict(wall_s=wall, device_s=dev_us / 1e6,
+                idle_share=1.0 - dev_us / 1e6 / wall,
+                wkv_device_s=wkv_us / 1e6, wkv_share=wkv_us / dev_us,
+                top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                     for e in top[:6]])
+
+
 def run_serve(arch, dev, ops):
     """`serve_requests` at the full width and depth of `arch` in bf16 with
     random weights; the launch counters are set to 0 just before it and
-    read just after. The weights are freed before returning."""
+    read just after. For rwkv6-7b one more prefill of the last prompts is
+    profiled. The weights are freed before returning."""
     import torch
 
     from repro_torch.configs import get_config
@@ -638,6 +728,8 @@ def run_serve(arch, dev, ops):
         raise AssertionError(f"{arch}: tokens {tuple(out.shape)} in "
                              f"[{int(new.min())}, {int(new.max())}]")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    prof = (profile_prefill(cfg, params, prompts_fn(SERVE_REQUESTS - 1), dev)
+            if SERVE_ARCHS[arch] == "wkv_chunked" else None)
     del params, out, new
     torch.cuda.empty_cache()
     st = stats["stages"]
@@ -651,7 +743,7 @@ def run_serve(arch, dev, ops):
         prefill_tok_per_s=SERVE_BATCH * SERVE_PROMPT / pre["steady_s"],
         decode_tok_per_s=SERVE_BATCH * SERVE_GEN / dec["steady_s"],
         decode_step_ms=dec["steady_s"] / SERVE_GEN * 1e3,
-        peak_mem_gb=peak_gb)
+        peak_mem_gb=peak_gb, prefill_profile=prof)
 
 
 # ---------------------------------------------------------------------------
@@ -886,7 +978,8 @@ def main() -> int:
                 or "Performance Loss" in line:
             print("  ptxas:", line.strip())
     evidence = tensor_core_evidence(so)
-    print("flash_attention tensor cores (SASS HGMMA per instance):",
+    print("tensor cores (SASS HGMMA per flash instance, HMMA per wkv "
+          "instance):",
           json.dumps(evidence), flush=True)
 
     walls["1 build"] = time.perf_counter() - t_phase
@@ -951,7 +1044,13 @@ def main() -> int:
             check_wkv(ops, ref, 1, 4096 + 37, 8, torch.float32, 1.0, True,
                       dev, 5, 2),
             check_wkv(ops, ref, 2, 300, 4, torch.bfloat16, 1.0, True, dev,
-                      5, 2)]
+                      5, 2),
+            check_wkv(ops, ref, 2, 300 + 13, 4, torch.float16, 1.0, True,
+                      dev, 5, 2),
+            check_wkv(ops, ref, 2, 1000 + 21, 8, torch.float32, 4.5, True,
+                      dev, 5, 2, zero_w=True),
+            check_wkv(ops, ref, 2, 777, 8, torch.bfloat16, 4.5, True, dev,
+                      5, 2, zero_w=True)]
     for row in wkvs:
         print("wkv_chunked", json.dumps(row), flush=True)
     walls["2 kernels"] = time.perf_counter() - t_phase
@@ -1107,6 +1206,7 @@ def main() -> int:
         {"name": "wkv_chunked", "route": "cuda",
          "source": "src/repro_torch/csrc/wkv_chunked.cu",
          "replaces": "src/repro/kernels/wkv_chunked.py:107",
+         "kernels": list(WKV_KERNELS),
          "launches": launches["wkv_chunked"],
          "max_abs_err": wkvs[0]["max_abs_err"],
          "ms": wkvs[0]["ms"], "plain_ms": wkvs[0]["plain_ms"],
@@ -1120,6 +1220,10 @@ def main() -> int:
             "prefill_first_s", "prefill_steady_s", "decode_first_s",
             "decode_steady_s", "prefill_tok_per_s", "decode_tok_per_s")}
          for r in serves}), flush=True)
+    for r in serves:
+        if r["prefill_profile"]:
+            print(f"profile: {r['arch']} steady prefill", json.dumps(
+                r["prefill_profile"]), flush=True)
     print("phase walls (s):", json.dumps(walls), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -67,9 +67,10 @@ SIGNATURES = {
     ],
     "repro_wkv_chunked": [
         c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,  # r k v w u
-        c_void_p, c_void_p, c_void_p,                      # s0 out s_fin
-        c_int, c_int, c_int, c_int, c_int, c_void_p,       # dtype b seq h
-    ],                                                     # hd stream
+        c_void_p, c_void_p, c_void_p, c_void_p,            # s0 out s_fin
+        c_int, c_int, c_int, c_int, c_int, c_void_p,       # s_chunks
+    ],                                                     # dtype b seq h
+                                                           # hd stream
 }
 
 _LIB = None          # the loaded library, once per process

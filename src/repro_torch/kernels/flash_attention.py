@@ -20,7 +20,7 @@ import math
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.peer_score import check_cuda_matrix
+from repro_torch.kernels.peer_score import aligned, check_cuda_matrix
 
 BLOCK = 128               # the Pallas kernel's default q and kv block
 HEAD_DIMS = (64, 128)     # the CUDA kernels' instances
@@ -92,8 +92,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          q_offset: int = 0):
     """The CUDA kernel of q's dtype (`ROUTES`). q (B, Sq, H, hd), k/v
     (B, Skv, K, hd): contiguous CUDA tensors of one float dtype (f32, bf16
-    or f16) on one device (bf16/f16 16-byte aligned), hd ∈ {64, 128}, H a
-    multiple of K. Same output as `flash_attention_plain`."""
+    or f16) on one device, hd ∈ {64, 128}, H a multiple of K. A bf16/f16
+    q, k or v whose start is not 16-byte aligned (TMA's requirement) is
+    copied first and takes the same kernel. Same output as
+    `flash_attention_plain`."""
     if not isinstance(q, torch.Tensor) or q.dtype not in ROUTES:
         raise ValueError("q must be a float32/bfloat16/float16 tensor")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -120,8 +122,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     if out.numel() == 0:
         return out
     route = ROUTES[q.dtype]
-    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k and v must be 16-byte aligned (TMA)")
+    if route == "wgmma":
+        q, k, v = aligned(q), aligned(k), aligned(v)
     lib = build.library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     args = (b, sq, skv, h, kh, hd, int(bool(causal)), int(window),

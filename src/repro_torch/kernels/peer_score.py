@@ -50,6 +50,12 @@ def check_cuda_matrix(name: str, t, dtype, shape=None, device=None):
         raise ValueError(f"{name} must be on {device}, got {t.device}")
 
 
+def aligned(t):
+    """t itself if its start is 16-byte aligned, else a copy (the caching
+    allocator's blocks start 512-byte aligned)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 @functools.lru_cache(maxsize=64)
 def gram_split_plan(m: int, p: int) -> tuple[int, int, int]:
     """How the kernel cuts the (M, P) Gram: → (tile, splits, chunk).

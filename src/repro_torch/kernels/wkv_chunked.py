@@ -7,11 +7,14 @@ the intra-chunk scores with the decay inside the contraction (every
 exponent ≤ 0), the bonus diagonal, and the state update
 S_C = diag(e^{cum_C})·S₀ + Σ_s (k_s⊙e^{cum_C−cum_s}) v_sᵀ.
 
-`wkv_chunked_cuda` launches the hand-written CUDA kernel
-(`csrc/wkv_chunked.cu`, which replaces the Pallas `wkv_chunked`);
-`wkv_chunked_plain` is its plain PyTorch version. Both take r/k/v in the
-model's dtype, w, u and the state in f32, and return (out in r.dtype,
-final state f32).
+`wkv_chunked_cuda` launches the two hand-written CUDA kernels of
+`csrc/wkv_chunked.cu` (which replace the Pallas `wkv_chunked`): a state
+pass that walks the chunks in order and keeps the state entering each,
+then an output pass over all chunks at once, with the intra-chunk scores
+in a sub-chunk factored form and the products in 3xTF32 on the tensor
+cores. `wkv_chunked_plain` is their plain PyTorch version. Both take
+r/k/v in the model's dtype, w, u and the state in f32, and return (out in
+r.dtype, final state f32).
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import DTYPE_CODES
-from repro_torch.kernels.peer_score import check_cuda_matrix
+from repro_torch.kernels.peer_score import aligned, check_cuda_matrix
 
 CHUNK = 64           # the Pallas kernel's default chunk
 HEAD_DIM = 64        # the CUDA kernel's head width
@@ -70,10 +73,13 @@ def wkv_chunked_plain(r, k, v, w, u, state=None):
 
 
 def wkv_chunked_cuda(r, k, v, w, u, state=None):
-    """The CUDA kernel. r, k, v: (B, S, H, 64) contiguous CUDA tensors of
-    one float dtype; w: f32 of the same shape; u: (H, 64) f32; state:
-    (B, H, 64, 64) f32 or None (zeros). Same outputs as
-    `wkv_chunked_plain`."""
+    """The CUDA kernels, one launch of each pass. r, k, v: (B, S, H, 64)
+    contiguous CUDA tensors of one float dtype; w: f32 of the same shape;
+    u: (H, 64) f32; state: (B, H, 64, 64) f32 or None (zeros). An input
+    whose start is not 16-byte aligned is copied first (the kernels load
+    16 bytes at a time). Same outputs as `wkv_chunked_plain`; the state
+    entering each chunk goes through an f32 scratch of
+    (B, H, ceil(S / 64), 64, 64)."""
     if not isinstance(r, torch.Tensor) or r.dtype not in DTYPE_CODES:
         raise ValueError("r must be a float32/bfloat16/float16 tensor")
     if r.dim() != 4:
@@ -94,11 +100,14 @@ def wkv_chunked_cuda(r, k, v, w, u, state=None):
     s_fin = torch.empty_like(state)
     if s == 0 or b == 0 or h == 0:
         return out, s_fin.copy_(state)
+    r, k, v, w, u, state = (aligned(t) for t in (r, k, v, w, u, state))
+    s_chunks = torch.empty((b, h, -(-s // CHUNK), hd, hd),
+                           dtype=torch.float32, device=dev)
     lib = build.library()
     code = lib.repro_wkv_chunked(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         state.data_ptr(), out.data_ptr(), s_fin.data_ptr(),
-        DTYPE_CODES[r.dtype], b, s, h, hd,
+        s_chunks.data_ptr(), DTYPE_CODES[r.dtype], b, s, h, hd,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     wkv_chunked_cuda.launches += 1

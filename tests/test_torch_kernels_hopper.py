@@ -20,6 +20,14 @@ reference's tolerance before chip time is spent on it:
   ragged cases hold the kernel to its plain version.
 * raw_gram (csrc/raw_gram.cu, split-K): the split plan of
   `peer_score.gram_split_plan`, and partial Grams summed in its order.
+* wkv_chunked (csrc/wkv_chunked.cu): the state pass and the output pass
+  step for step — decay factors as products of w taken from the
+  sub-chunks' edges, the factored off-diagonal sub-blocks, the diagonal
+  ones with the decay inside the sum, and every product in 3xTF32 (TF32
+  rounding emulated on the f32 bits) — within the card's checks of the
+  Pallas kernel, the plain version and the per-token oracle, with every
+  factor at most 1; and one TF32 product alone fails them. What the CPU
+  cannot reproduce: the tensor cores' order of summation.
 """
 import math
 
@@ -29,10 +37,15 @@ import pytest
 import torch
 
 from repro.kernels import peer_score as ref_ps
+from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.kernels.wkv_chunked import wkv_chunked as pallas_wkv
 from repro_torch.kernels import ref
 from repro_torch.kernels.peer_score import (FULL_M, MIN_SPLIT_P,
                                             gram_split_plan)
+from repro_torch.kernels.wkv_chunked import wkv_chunked_plain
+
+from test_torch_serve import WKV_CASES, _wkv_inputs
 
 BLOCK_Q, BLOCK_KV = 128, 64   # the wgmma kernel's q block and kv tile
 NEG = -1e30                   # the kernel's masked score (unscaled)
@@ -240,3 +253,247 @@ def test_split_gram_sum_matches_pallas(m, p):
         got = part if got is None else got + part
     err = float(np.abs(got.numpy() - want).max())
     assert err <= 1e-5 * float(np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# wkv_chunked: two passes, sub-chunk factored form, 3xTF32
+# ---------------------------------------------------------------------------
+
+CHUNK, SUB = 64, 16   # the kernels' chunk and sub-chunk of tokens
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, on the f32 bits: what cvt.rna.tf32.f32 leaves (the f32 layout
+    with the low 13 bits 0)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b, lo=True):
+    """a @ b as the kernels' mma.sync products: each f32 operand split into
+    hi = tf32(x) and lo = tf32(x − hi), and lo·hi + hi·lo + hi·hi summed in
+    f32 (without `lo`, hi·hi alone: one TF32 product)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not lo:
+        return ah @ bh
+    return _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + ah @ bh
+
+
+def _in_order(factors, one):
+    """((1·f₀)·f₁)·… : a product taken in the kernels' order."""
+    out = one
+    for f in factors:
+        out = out * f
+    return out
+
+
+def _sub_products(w):
+    """Per sub-chunk of 16 tokens of w (…, 64, hd): the exclusive prefix
+    products lx_t = Π_{start ≤ q < t} w_q and suffix products
+    rx_s = Π_{s < q ≤ end} w_q, each taken from the sub-chunk's edge
+    inwards, and the totals T (…, 4, hd)."""
+    ws = w.unflatten(-2, (CHUNK // SUB, SUB))
+    one = torch.ones_like(ws[..., 0, :])
+    lx, rx = [one], [one]
+    for q in range(SUB - 1):
+        lx.append(lx[-1] * ws[..., q, :])
+        rx.append(rx[-1] * ws[..., SUB - 1 - q, :])
+    total = lx[-1] * ws[..., SUB - 1, :]
+    return (torch.stack(lx, -2).flatten(-3, -2),
+            torch.stack(rx[::-1], -2).flatten(-3, -2), total)
+
+
+def wkv_two_pass_emulation(r, k, v, w, u, state=None, *, lo=True):
+    """The two CUDA kernels of csrc/wkv_chunked.cu in PyTorch (f32, CPU),
+    step for step. Chunks of 64 tokens (a tail acts as w = 1, r = k = v =
+    0), sub-chunks of 16. Every decay factor is a product of w taken in
+    the kernels' order (`_sub_products`, `_in_order`), never an exp of a
+    difference of log-w prefix sums: e^{cum_prev_t − cum_s} is
+    Π_{s<q<t} w_q.
+    State pass: per chunk, S_c (the state entering it) is kept, then
+    S ← D·S + (k ⊙ rx ⊙ T_{b+1}⋯T₃)ᵀ·v, D = T₀T₁T₂T₃ (s in sub-chunk b).
+    Output pass, per chunk: o = (r ⊙ lx ⊙ T₀⋯T_{a−1})·S_c + A·v, where
+    A's off-diagonal sub-blocks (a > b) are the factored product
+    (r_a ⊙ lx)·(k_b ⊙ rx ⊙ T_{b+1}⋯T_{a−1})ᵀ, its diagonal sub-blocks
+    Σ_i (r_t k_s)·P_{ts} with P_{ts} = Π_{s<q<t} w_q built downwards from
+    s = t − 1 (the decay inside the sum), and the bonus Σ_i (r_t k_t) u
+    at s = t. Every product of matrices is `_mm3`. → (out in r.dtype,
+    final state, every decay factor formed, by name)."""
+    b, s, h, hd = r.shape
+    nc = -(-s // CHUNK)
+    ps = nc * CHUNK - s
+    n_sub = CHUNK // SUB
+
+    def chunks(a, fill):
+        a = torch.nn.functional.pad(a.float(), (0, 0, 0, 0, 0, ps),
+                                    value=fill)
+        return a.reshape(b, nc, CHUNK, h, hd).permute(0, 3, 1, 2, 4)
+
+    rc, kc, vc, wc = (chunks(a, f) for a, f in ((r, 0.0), (k, 0.0),
+                                               (v, 0.0), (w, 1.0)))
+    lx, rx, tot = _sub_products(wc)
+    one = torch.ones_like(tot[..., 0, :])
+    before = [_in_order([tot[..., m, :] for m in range(a)], one)
+              for a in range(n_sub + 1)]          # T₀⋯T_{a−1}
+    after = [_in_order([tot[..., m, :] for m in range(bb + 1, n_sub)], one)
+             for bb in range(n_sub)]              # T_{b+1}⋯T₃
+    sub = lambda x, a: x[..., SUB * a:SUB * (a + 1), :]  # noqa: E731
+
+    st = torch.zeros((b, h, hd, hd)) if state is None else state.float()
+    s_in = []
+    k_dec = torch.cat([sub(kc * rx, bb) * after[bb][..., None, :]
+                       for bb in range(n_sub)], -2)
+    for c in range(nc):
+        s_in.append(st)
+        st = before[n_sub][:, :, c, :, None] * st + _mm3(
+            k_dec[:, :, c].transpose(-1, -2), vc[:, :, c], lo)
+
+    r_t = rc * lx
+    r_cross = torch.cat([sub(r_t, a) * before[a][..., None, :]
+                         for a in range(n_sub)], -2)
+    o = _mm3(r_cross, torch.stack(s_in, 2), lo)
+    a_mat = torch.zeros(rc.shape[:-1] + (CHUNK,))
+    for a in range(n_sub):
+        for bb in range(a):
+            mid = _in_order([tot[..., m, :] for m in range(bb + 1, a)], one)
+            k_mid = sub(kc * rx, bb) * mid[..., None, :]
+            a_mat[..., SUB * a:SUB * (a + 1), SUB * bb:SUB * (bb + 1)] = \
+                _mm3(sub(r_t, a), k_mid.transpose(-1, -2), lo)
+    p_diag = []
+    for a in range(n_sub):
+        rr, kk, ww = sub(rc, a), sub(kc, a), sub(wc, a)
+        blk = torch.zeros(rr.shape[:-1] + (SUB,))
+        for t in range(SUB):
+            p = torch.ones_like(rr[..., 0, :])
+            for s_ in range(t - 1, -1, -1):
+                p_diag.append(p)
+                blk[..., t, s_] = ((rr[..., t, :] * kk[..., s_, :])
+                                   * p).sum(-1)
+                p = p * ww[..., s_, :]
+            blk[..., t, t] = ((rr[..., t, :] * kk[..., t, :])
+                              * u.float()[None, :, None, :]).sum(-1)
+        a_mat[..., SUB * a:SUB * (a + 1), SUB * a:SUB * (a + 1)] = blk
+    o = o + _mm3(a_mat, vc, lo)
+    factors = dict(lx=lx, rx=rx, totals=tot, decay=before[n_sub],
+                   diag=torch.stack(p_diag),
+                   **{f"before{a}": before[a] for a in range(n_sub)},
+                   **{f"after{bb}": after[bb] for bb in range(n_sub)})
+    out = o.permute(0, 2, 3, 1, 4).reshape(b, nc * CHUNK, h, hd)[:, :s]
+    return out.to(r.dtype), st, factors
+
+
+# (B, S, H, dtype of r/k/v, initial state, highest log-log decay, decays):
+# decays "zero" sets w = 0 in a quarter of the channels (the 1e-38 clamp
+# takes them), "one" sets w = 1 everywhere, "draw" keeps the draw
+# w = exp(−exp(U[−6, hi])); hi = 4.5 reaches w = e^{−90}
+WKV_EDGE_CASES = [
+    (1, 150, 2, "float32", True, 1.0, "zero"),
+    (1, 100, 2, "float32", True, 1.0, "one"),
+    (2, 130, 2, "float32", True, 4.5, "draw"),
+]
+# the serving cases, an f16 one (ragged, with state) and the edge cases
+WKV_ALL_CASES = [c + ("draw",) for c in WKV_CASES] + \
+    [(1, 150, 2, "float16", True, 1.0, "draw")] + WKV_EDGE_CASES
+
+
+def _wkv_case(case):
+    b, s, h, dtype, state, hi, decays = case
+    r, k, v, w, u, s0 = _wkv_inputs(b, s, h, state, hi, seed=s + h)
+    if decays == "zero":
+        w[..., ::4] = 0.0
+    elif decays == "one":
+        w[...] = 1.0
+    return (r, k, v, w, u, s0), dtype
+
+
+def _wkv_checks(got, got_s, want, want_s, dtype):
+    """The checks the card holds the kernel to, on the CPU's scale: bf16
+    and f16 within one ulp, f32 within 1e-5 of max(1, max|out|), state
+    within 1e-5 of max(1, max|S|). → the names of the checks that
+    failed."""
+    bad = []
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    if dtype != "float32":
+        tdt = getattr(torch, dtype)
+        if not ref.within_ulps(torch.from_numpy(got).to(tdt),
+                               torch.from_numpy(want).to(tdt)):
+            bad.append("out")
+    elif np.abs(got - want).max() > 1e-5 * max(1.0, np.abs(want).max()):
+        bad.append("out")
+    want_s = np.asarray(want_s, np.float32)
+    if np.abs(got_s.numpy() - want_s).max() > \
+            1e-5 * max(1.0, np.abs(want_s).max()):
+        bad.append("state")
+    return bad
+
+
+def _wkv_wants(arrays, dtype, decays):
+    """The references on the same inputs, [(out, state)] as numpy f32: the
+    reference's per-token oracle `wkv_ref`, and for the drawn decays up
+    to hi = 1 and for w = 1 also the Pallas kernel (interpret) and
+    `wkv_chunked_plain`. Beyond those the two chunked forms are no
+    reference at these tolerances: both take e^{cum_prev − cum} of log-w
+    prefix sums, whose rounding is ~ε·|cum| (|cum| up to 64·87.5 at
+    w = 0), which puts the plain version further from the oracle than
+    these tolerances (chip_smoke.py prints that distance on the card);
+    and XLA on the CPU flushes the 1e-38 clamp (a subnormal) to 0, so the
+    Pallas kernel returns NaN for w below 1.2e-38."""
+    r, k, v, w, u, s0 = arrays
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jr, jk, jv = (jnp.asarray(a, jdt) for a in (r, k, v))
+    js0 = None if s0 is None else jnp.asarray(s0)
+    wants = [jref.wkv_ref(jr, jk, jv, jnp.asarray(w), jnp.asarray(u), js0)]
+    if decays == "one" or (decays == "draw" and
+                           float(w.min()) >= np.finfo(np.float32).tiny):
+        wants.append(pallas_wkv(jr, jk, jv, jnp.asarray(w), jnp.asarray(u),
+                                js0, interpret=True))
+        wants.append(wkv_chunked_plain(
+            *(torch.from_numpy(a).to(tdt) for a in (r, k, v)),
+            torch.from_numpy(w), torch.from_numpy(u),
+            None if s0 is None else torch.from_numpy(s0)))
+    return [(np.asarray(o.float() if isinstance(o, torch.Tensor)
+                        else o.astype(jnp.float32), np.float32),
+             np.asarray(st, np.float32)) for o, st in wants]
+
+
+def _wkv_emulate(arrays, dtype, lo=True):
+    r, k, v, w, u, s0 = arrays
+    tdt = getattr(torch, dtype)
+    return wkv_two_pass_emulation(
+        *(torch.from_numpy(a).to(tdt) for a in (r, k, v)),
+        torch.from_numpy(w), torch.from_numpy(u),
+        None if s0 is None else torch.from_numpy(s0), lo=lo)
+
+
+@pytest.mark.parametrize("case", WKV_ALL_CASES,
+                         ids=lambda c: "b{}-s{}-h{}-{}-state{}-hi{}-{}"
+                         .format(*c))
+def test_wkv_two_pass_numerics_match_pallas_and_plain(case):
+    """The two-pass, sub-chunk factored, 3xTF32 design within the card's
+    checks of the Pallas kernel (interpret) and of the plain version, and
+    every exp factor it forms finite and at most 1: no factor can
+    overflow, whatever the decay."""
+    arrays, dtype = _wkv_case(case)
+    got, got_s, factors = _wkv_emulate(arrays, dtype)
+    assert got.dtype == getattr(torch, dtype)
+    for name, f in factors.items():
+        assert bool(torch.isfinite(f).all()), name
+        assert float(f.max()) <= 1.0, name
+    wants = _wkv_wants(arrays, dtype, case[-1])
+    assert len(wants) == (1 if case[-1] == "zero" or case[5] > 1 else 3)
+    for want, want_s in wants:
+        assert _wkv_checks(got, got_s, want, want_s, dtype) == []
+
+
+def test_wkv_two_pass_needs_the_lo_terms():
+    """One TF32 product (hi·hi alone) fails a check that 3xTF32 passes:
+    the split is what holds the kernel to the reference."""
+    failed = []
+    for case in WKV_ALL_CASES:
+        arrays, dtype = _wkv_case(case)
+        got, got_s, _ = _wkv_emulate(arrays, dtype, lo=False)
+        want, want_s = _wkv_wants(arrays, dtype, case[-1])[0]
+        failed += _wkv_checks(got, got_s, want, want_s, dtype)
+    assert failed, "one TF32 product passed every check"
