@@ -7,12 +7,17 @@ Phases, each of which fails the script (non-zero exit) on any fault:
 
 1. build    nvcc builds the port's CUDA kernels from `src/repro_torch/csrc`
             for sm_90a (timed); TF32 is switched off for matmuls and cuDNN.
-            The ptxas report (registers, spills, wgmma serialisation) and
-            the HGMMA (wgmma) instructions of each flash kernel instance in
-            the library's SASS (cuobjdump) are printed: evidence that the
+            ptxas's wgmma serialisation warnings, if any, and the HGMMA
+            (wgmma) instructions of each flash kernel instance in the
+            library's SASS (cuobjdump) are printed: evidence that the
             bf16/f16 route reaches the tensor cores (fails if one holds
-            none). The ptxas lines (registers, spills) of the two
-            wkv_chunked kernels are printed apart (fails if one is missing).
+            none). The ptxas lines (registers, spill bytes) of the
+            select_topk kernels (tile, P-split partial, merge), the two
+            mask_evolve kernels (histogram, apply) and the two wkv_chunked
+            kernels are printed as JSON (a second run from the same
+            checkout finds the library built and has no report to print);
+            each of them must be in the library's SASS, built now or
+            earlier.
 2. kernels  each kernel against its plain PyTorch version on the card, at
             the rounds' shapes and at population scale. Times by CUDA
             events after warm-up.
@@ -20,7 +25,10 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             k=10; scalar and matrix Eq. 9 cost, a candidate mask): indices
             exact (a flip is allowed only between scores within 1e-5
             relative, and is counted), values rtol 1e-4, row stats rtol
-            1e-4 + atol 1e-6·M (sums of M cosines).
+            1e-4 + atol 1e-6·M (sums of M cosines); each row names the
+            split plan (`select_plan`), and the scalar-cost rows at M=16,
+            1024 and 4096 give the device time from CUDA-graph replay and
+            the host's own time a call beside the per-call time.
             raw_gram (M=16, 1024, 4096; P=5130): error ≤ 1e-4 × the
             largest entry (fp32 sums of P products in another order), a
             second launch bitwise equal (split-K sums its splits in a fixed
@@ -30,7 +38,17 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             ResNet-18 extractor — D=5; M=1024, F=65,536, D=11): bitwise.
             mask_evolve (the dispfl round's largest and smallest stacked
             leaves, 16×2,359,296 and 16×10 in bf16, and 16×64; keep = n/2,
-            regrow 0.02): threshold, mask and output bits equal.
+            regrow 0.02): threshold, mask and output bits equal. Edge
+            cases, batched and one-leaf, bits equal too: float32 and
+            bfloat16 leaves with NaNs covering the kth position (threshold
+            bits NAN_END_BITS) and of subnormal magnitudes (a subnormal
+            threshold). Then the
+            whole stage: the round's 56 stacked leaves (178.8 M bf16
+            weights, keep by dispfl_sparsity) in one call of
+            `mask_evolve_leaves_cuda`, each leaf's threshold, mask and
+            output bitwise equal to the plain version's and a second call
+            equal to the first; timed beside the same leaves through the
+            one-leaf entry point one by one and the plain version's loop.
             flash_attention, each case through its dtype's route (bf16 and
             f16: the wgmma kernel; f32: the FFMA kernel; the route counters
             must show it): qwen2-1.5b prefill, q (4, 4096, 12, 128), k/v
@@ -62,8 +80,9 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             NaN within a round, in the JAX reference too. Launch counters are set to 0 just before
             each run and read after each of its rounds: select_topk must
             run in every pfeddst round, raw_gram in every pfeddst_random
-            round, gossip_mix in every dfedpgp round and mask_evolve once
-            per parameter leaf (56) in every dispfl round. Losses and
+            round, gossip_mix in every dfedpgp round, and mask_evolve
+            exactly once in every dispfl round, that call covering all 56
+            parameter leaves (the `leaves` counter). Losses and
             accuracy must be finite; every active client must select
             exactly k peers (pfeddst, dfedpgp) or at least k (the
             undirected plans), inactive ones none.
@@ -93,7 +112,10 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             kernels by time go to chiprun_out/chip_smoke_profile.txt.
 
 Output: each phase's wall, the card's name and power limit (nvidia-smi),
-one `kernels` JSON line, the round walls, and last
+one `kernels` JSON line (mask_evolve's `launches` counts calls, each
+of 3–5 kernel launches, and its row also gives the leaves those calls
+covered and the whole stage's time and device time; select_topk's
+its device time at M=16), the round walls, and last
 `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -149,6 +171,43 @@ def bound(bytes_moved: float, flops: float, peak: float = FP32_FLOPS):
 
 
 WKV_KERNELS = ("wkv_state_kernel", "wkv_output_kernel")
+# kernels whose ptxas lines (registers, spills) phase 1 prints as JSON and
+# whose presence it checks in the library's SASS
+PTXAS_KERNELS = WKV_KERNELS + ("histogram_kernel", "apply_kernel",
+                               "select_tile_kernel", "select_partial_kernel",
+                               "select_merge_kernel")
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of every instance of the PTXAS_KERNELS in
+    an `nvcc -Xptxas -v` log, by demangled-enough name. Fails if one of
+    them is missing."""
+    import re
+
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            hit = [k for k in PTXAS_KERNELS if k in m.group(1)]
+            name = f"{hit[0]} {m.group(1)}" if hit else None
+            if name:
+                report[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[name]["spill_stores"] = int(m.group(1))
+            report[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+    missing = [k for k in PTXAS_KERNELS
+               if not any(n.startswith(k + " ") for n in report)]
+    if missing:
+        raise AssertionError(f"ptxas report lacks {missing}")
+    return report
 
 
 def tensor_core_evidence(so) -> dict:
@@ -156,7 +215,9 @@ def tensor_core_evidence(so) -> dict:
     (mma.sync) instructions in each wkv_chunked kernel instance of the
     built library's SASS, by the cuobjdump next to nvcc. Fails if there is
     no cuobjdump, a wgmma instance holds no HGMMA, or one of the two wkv
-    kernels is missing or an instance of it holds no HMMA."""
+    kernels is missing or an instance of it holds no HMMA, or one of the
+    PTXAS_KERNELS is not in the SASS (so a library built by an earlier run
+    is checked too)."""
     import re
 
     from repro_torch.kernels import build
@@ -169,8 +230,10 @@ def tensor_core_evidence(so) -> dict:
                           text=True, timeout=300, check=True).stdout
     wkv_dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     counts, hmma, name, op = {}, {}, None, None
+    functions = []
     for line in sass.splitlines():
         if "Function :" in line:
+            functions.append(line)
             m = re.search(r"flash_(wgmma|ffma)_kernelI(?:Lb([01])E)?Li(\d+)E",
                           line)
             mw = re.search(r"(wkv_(?:state|output)_kernel)I([^E]*)E", line)
@@ -194,6 +257,9 @@ def tensor_core_evidence(so) -> dict:
     if not all(any(k.startswith(w) for k in hmma) for w in WKV_KERNELS) \
             or not all(hmma.values()):
         raise AssertionError(f"wkv kernels missing or without HMMA: {hmma}")
+    absent = [k for k in PTXAS_KERNELS if not any(k in f for f in functions)]
+    if absent:
+        raise AssertionError(f"kernels missing from the library: {absent}")
     return {"cuobjdump": str(cuobj), "hgmma": counts, "wkv_hmma": hmma}
 
 
@@ -217,7 +283,10 @@ def select_case(m, p, k, *, matrix_cost, cand, seed, dev):
     return x, last, s_l, t, cost, mask
 
 
-def check_select(ops, ref, case, k, iters):
+def check_select(ops, ref, case, k, iters, *, graph=False):
+    """select_topk against the plain version; times per call and, with
+    `graph`, on the device alone (CUDA-graph replay) and on the host alone
+    (the calls issued without waiting)."""
     import torch
 
     x, last, s_l, t, cost, mask = case
@@ -254,9 +323,24 @@ def check_select(ops, ref, case, k, iters):
     if mask is not None:
         nbytes += m * m
     b_ms, b_by = bound(nbytes, 2.0 * m * m * p)
+    device_ms = host_ms = None
+    if graph:
+        def call():
+            ops.select_topk(x, last, s_l, t, cost, mask, impl="cuda", **kw)
+
+        device_ms = graph_ms(call, iters)
+        # the host's own time a call: issue `iters` calls, then wait
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        host_ms = (time.perf_counter() - t0) / iters * 1e3
+        torch.cuda.synchronize()
     return dict(m=m, p=p, k=k, matrix_cost=isinstance(cost, torch.Tensor),
-                cand=mask is not None, flips=flips, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                cand=mask is not None,
+                plan=list(ops.KERNELS["select_topk"].last_plan),
+                flips=flips, max_abs_err=err, ms=ms, device_ms=device_ms,
+                host_ms=host_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
 
 
@@ -400,6 +484,137 @@ def check_evolve(me, shape, dtype, seed, dev, iters):
                 keep=keep, thr=float(thr), kept=int(mask.sum()),
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms)
+
+
+def evolve_edge_leaves(dev):
+    """Leaves whose thresholds are the radix select's edge cases: float32
+    and bfloat16 leaves with NaNs (of both signs) covering the kth
+    position, so the threshold is the bisection's NaN end, and float32 and
+    bfloat16 leaves of subnormal magnitudes, so the threshold is one.
+    → (leaves, grows, keeps)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    leaves, grows, keeps = [], [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(20_000, generator=g, device=dev)
+        x[::8] = torch.nan
+        x[4::8] = -torch.nan
+        leaves.append(x.to(dtype))
+        keeps.append(x.numel() // 8)     # kth = 7n/8 lies in the NaNs
+        x = torch.randn(20_000, generator=g, device=dev) * 1e-39
+        x[::7] = 0.0
+        leaves.append(x.to(dtype))
+        keeps.append(x.numel() // 2)
+    grows = [torch.rand(x.shape, generator=g, device=dev) > 0.98
+             for x in leaves]
+    return leaves, grows, keeps
+
+
+def check_evolve_edges(me, dev):
+    """The edge-case leaves in one batched call and through the one-leaf
+    entry point: threshold, mask and output bits equal to the plain
+    version's; the NaN leaves' threshold is NAN_END_BITS and the subnormal
+    leaves' a subnormal, so the cases are what they claim."""
+    import torch
+
+    leaves, grows, keeps = evolve_edge_leaves(dev)
+    got = me.mask_evolve_leaves_cuda(leaves, grows, keeps)
+    thrs = []
+    for i, (x, grow, keep, res) in enumerate(zip(leaves, grows, keeps, got)):
+        bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+        p_out, p_mask, p_thr = me.mask_evolve_plain(x, grow, keep=keep)
+        for route, (out, mask, thr) in (
+                ("batched", res),
+                ("one-leaf", me.mask_evolve_cuda(x, grow, keep=keep))):
+            for what, ok in (
+                    ("threshold", torch.equal(thr.view(torch.int32),
+                                              p_thr.view(torch.int32))),
+                    ("mask", torch.equal(mask, p_mask)),
+                    ("output", torch.equal(out.view(bits),
+                                           p_out.view(bits)))):
+                if not ok:
+                    raise AssertionError(f"mask_evolve edge leaf {i} "
+                                         f"{x.dtype} ({route}): {what} "
+                                         "differs from the plain version")
+        t = int(p_thr.view(torch.int32))
+        if (i % 2 == 0) != (t == me.NAN_END_BITS) or \
+                (i % 2 == 1 and not 0 < t < 0x00800000):
+            raise AssertionError(f"mask_evolve edge leaf {i}: threshold "
+                                 f"bits {t:#x} are not the case's")
+        thrs.append(f"{t:#010x}")
+    return dict(leaves=len(leaves), thr_bits=thrs)
+
+
+def check_evolve_stage(me, shapes, keep_frac, seed, dev, iters):
+    """The dispfl round's mask evolution: every stacked leaf (`shapes`,
+    bfloat16, keep = max(int(n·keep_frac), 1), regrow 0.02) in one call
+    of the batched kernel, each leaf's threshold, mask and output bits
+    equal to the plain version's; a second call equal to the first. Times
+    the call (and its kernels' device time under torch.profiler), the same
+    leaves through the one-leaf entry point one by one, and the plain
+    version's loop."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    leaves = [(torch.randn(s, generator=g, device=dev) * 0.05).to(
+        torch.bfloat16) for s in shapes]
+    grows = [torch.rand(s, generator=g, device=dev) > 0.98 for s in shapes]
+    keeps = [max(int(x.numel() * keep_frac), 1) for x in leaves]
+    me.mask_evolve_cuda.launches = me.mask_evolve_cuda.leaves = 0
+    got = me.mask_evolve_leaves_cuda(leaves, grows, keeps)
+    again = me.mask_evolve_leaves_cuda(leaves, grows, keeps)
+    calls = (me.mask_evolve_cuda.launches, me.mask_evolve_cuda.leaves)
+    err = 0.0
+    for x, grow, keep, (out, mask, thr), (out2, mask2, thr2) in zip(
+            leaves, grows, keeps, got, again):
+        p_out, p_mask, p_thr = me.mask_evolve_plain(x, grow, keep=keep)
+        for what, ok in (
+                ("threshold", torch.equal(thr.view(torch.int32),
+                                          p_thr.view(torch.int32))),
+                ("mask", torch.equal(mask, p_mask)),
+                ("output", torch.equal(out.view(torch.int16),
+                                       p_out.view(torch.int16))),
+                ("repeat", torch.equal(out.view(torch.int16),
+                                       out2.view(torch.int16))
+                 and torch.equal(mask, mask2) and
+                 torch.equal(thr.view(torch.int32), thr2.view(torch.int32)))):
+            if not ok:
+                raise AssertionError(f"mask_evolve stage, leaf "
+                                     f"{tuple(x.shape)}: {what} differs")
+        err = max(err, float((out.float() - p_out.float()).abs().max()))
+    if calls != (2, 2 * len(leaves)):
+        raise AssertionError(f"mask_evolve stage: (calls, leaves) {calls}")
+    n = sum(x.numel() for x in leaves)
+
+    def per_leaf():
+        for x, grow, keep in zip(leaves, grows, keeps):
+            me.mask_evolve_cuda(x, grow, keep=keep)
+
+    def plain():
+        for x, grow, keep in zip(leaves, grows, keeps):
+            me.mask_evolve_plain(x, grow, keep=keep)
+
+    ms = time_ms(lambda: me.mask_evolve_leaves_cuda(leaves, grows, keeps),
+                 iters)
+    # the call's device time: its kernels' own time under torch.profiler
+    # (back to back, a call's host path can take longer than its kernels)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            me.mask_evolve_leaves_cuda(leaves, grows, keeps)
+        torch.cuda.synchronize()
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / iters / 1e3
+    per_leaf_ms = time_ms(per_leaf, iters)
+    plain_ms = time_ms(plain, 2, warmup=1)
+    b_ms, b_by = bound(n * (2 * 2 + 2), 2.0 * n)
+    return dict(leaves=len(leaves), n=n, dtype="bfloat16",
+                keep_frac=keep_frac, max_abs_err=err, ms=ms,
+                device_ms=device_ms, one_leaf_calls_ms=per_leaf_ms,
+                plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def visible_pairs(sq, skv, *, causal, window, q_offset) -> int:
@@ -585,15 +800,18 @@ def check_edges(name, met, k, n_active):
 
 
 def run_path(name, cfg, fl, data, rounds, dev, run_experiment, ops,
-             min_launches):
+             n_leaves):
     """One strategy's run; the launch counters are set to 0 just before
-    it and read after each of its rounds."""
+    it and read after each of its rounds. Each kernel of the path must
+    launch in every round; mask_evolve exactly once a dispfl round, over
+    all `n_leaves` leaves."""
     k = min(fl.peers_per_round, fl.num_clients - 1)
     n_active = max(1, int(round(fl.num_clients * fl.client_sample_ratio)))
     edges, counts = [], []
+    evolve = ops.KERNELS["mask_evolve"]
 
     def on_round(r, met):
-        counts.append(ops.launch_counts())
+        counts.append({**ops.launch_counts(), "leaves": evolve.leaves})
         edges.append(check_edges(name, met, k, n_active))
 
     ops.reset_launch_counts()
@@ -607,10 +825,17 @@ def run_path(name, cfg, fl, data, rounds, dev, run_experiment, ops,
     if kernel is not None:
         per_round = [b[kernel] - a[kernel]
                      for a, b in zip([{kernel: 0}] + counts, counts)]
-        if min(per_round) < min_launches.get(kernel, 1):
+        if min(per_round) < 1:
             raise AssertionError(f"{name}: {kernel} launches per round "
-                                 f"{per_round}, expected at least "
-                                 f"{min_launches.get(kernel, 1)}")
+                                 f"{per_round}, expected at least 1")
+    if kernel == "mask_evolve":
+        leaves = [b["leaves"] - a["leaves"]
+                  for a, b in zip([{"leaves": 0}] + counts, counts)]
+        if set(per_round) != {1} or set(leaves) != {n_leaves}:
+            raise AssertionError(
+                f"{name}: mask_evolve calls per round {per_round} covering "
+                f"{leaves} leaves, expected 1 call over {n_leaves}")
+        launches["mask_evolve_leaves"] = evolve.leaves
     h = hist.to_dict()
     # round 0's wall is compile_s; wall_s is the cumulative steady wall
     # after each round (eval_every=1), 0 after round 0
@@ -974,9 +1199,15 @@ def main() -> int:
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {so.name}", flush=True)
     for line in build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line \
-                or "Performance Loss" in line:
+        if "Performance Loss" in line:      # wgmma serialised by ptxas
             print("  ptxas:", line.strip())
+    if build.BUILD_LOG:
+        print("ptxas (registers, spill bytes) of the select_topk, "
+              "mask_evolve and wkv_chunked kernels:",
+              json.dumps(ptxas_report(build.BUILD_LOG)), flush=True)
+    else:
+        print("ptxas: the library was built by an earlier run; no report",
+              flush=True)
     evidence = tensor_core_evidence(so)
     print("tensor cores (SASS HGMMA per flash instance, HMMA per wkv "
           "instance):",
@@ -990,14 +1221,15 @@ def main() -> int:
     for matrix_cost, cand in ((False, False), (True, False), (False, True)):
         main_sel.append(check_select(
             ops, ref, select_case(16, p, 4, matrix_cost=matrix_cost,
-                                  cand=cand, seed=1, dev=dev), 4, 200))
+                                  cand=cand, seed=1, dev=dev), 4, 200,
+            graph=not (matrix_cost or cand)))
     scale_sel = [
         check_select(ops, ref, select_case(1024, p, 10, matrix_cost=False,
                                            cand=False, seed=2, dev=dev),
-                     10, 20),
+                     10, 20, graph=True),
         check_select(ops, ref, select_case(4096, p, 10, matrix_cost=False,
                                            cand=False, seed=3, dev=dev),
-                     10, 5),
+                     10, 5, graph=True),
         check_select(ops, ref, select_case(4096, p, 10, matrix_cost=True,
                                            cand=True, seed=4, dev=dev),
                      10, 5),
@@ -1020,10 +1252,21 @@ def main() -> int:
                             dev, 10),
                check_evolve(me, (16, 10), torch.bfloat16, 11, dev, 50),
                check_evolve(me, (16, 64), torch.bfloat16, 12, dev, 50)]
+    # the dispfl round's stacked leaves: M = 16 copies of each parameter
+    leaf_shapes = [(16, *t.shape) for t in model_mod.init_params(
+        get_config("resnet18-cifar"),
+        torch.Generator(device=dev).manual_seed(0), dev).values()]
+    edges = check_evolve_edges(me, dev)
+    stage = check_evolve_stage(me, leaf_shapes,
+                               1 - FLConfig().dispfl_sparsity, 13, dev, 10)
     for row in mixes:
         print("gossip_mix", json.dumps(row), flush=True)
     for row in evolves:
         print("mask_evolve", json.dumps(row), flush=True)
+    print("mask_evolve edge cases (NaN at the kth, subnormal threshold), "
+          "bitwise:", json.dumps(edges), flush=True)
+    print("mask_evolve stage (one call over the dispfl round's leaves)",
+          json.dumps(stage), flush=True)
     # the qwen2-1.5b prefill shape first: its row is the kernel's line
     flashes = [check_flash(ops, ref, (4, 4096, 4096, 12, 2, 128, True, 0, 0),
                            torch.bfloat16, dev, 5, library=True)]
@@ -1065,22 +1308,22 @@ def main() -> int:
     data = client_datasets_cifar(0, fl.num_clients,
                                  classes_per_client=fl.classes_per_client,
                                  samples_per_class=120, image_size=32)
-    n_leaves = len(model_mod.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(0), dev))
-    min_launches = {"mask_evolve": n_leaves}
+    n_leaves = len(leaf_shapes)
     # the baselines at lr 0.01: at the paper's 0.1 their full-model SGD
     # step diverges to NaN within a round, in the JAX reference as well
     # (ROADMAP queue 3)
     fl_base = dataclasses.replace(fl, lr=BASELINE_LR)
     paths = [run_path(name, cfg, fl if name.startswith("pfeddst")
                       else fl_base, data, rounds, dev, run_experiment, ops,
-                      min_launches)
+                      n_leaves)
              for name, rounds in (("pfeddst", 3), ("pfeddst_random", 3),
                                   ("dfedpgp", 3), ("dispfl", 3),
                                   ("dfedavgm", 2), ("fedavg", 2),
                                   ("fedper", 2), ("fedbabu", 2))]
     launches = {PATH_KERNELS[r["name"]]: r["launches"][PATH_KERNELS[r["name"]]]
                 for r in paths if r["name"] in PATH_KERNELS}
+    evolve_leaves = next(r["launches"]["mask_evolve_leaves"] for r in paths
+                         if r["name"] == "dispfl")
     for run in paths:
         print("path", json.dumps(run), flush=True)
     serves = []
@@ -1089,7 +1332,8 @@ def main() -> int:
         print("serve", json.dumps(serves[-1]), flush=True)
     launches.update({SERVE_ARCHS[r["arch"]]: r["launches"][SERVE_ARCHS[
         r["arch"]]] for r in serves})
-    print("launches (each kernel in its path's run):", json.dumps(launches),
+    print("launches (each kernel in its path's run):", json.dumps(
+        {**launches, "mask_evolve_leaves": evolve_leaves}),
           flush=True)
     walls["3 path"] = time.perf_counter() - t_phase
     print(f"phase 3 wall: {walls['3 path']:.1f} s", flush=True)
@@ -1164,7 +1408,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/select_score.py:152",
          "launches": launches["select_topk"],
          "max_abs_err": max(r["max_abs_err"] for r in main_sel),
-         "ms": k_main["ms"], "plain_ms": k_main["plain_ms"],
+         "ms": k_main["ms"], "device_ms": k_main["device_ms"],
+         "plain_ms": k_main["plain_ms"],
          "bound_ms": k_main["bound_ms"], "bound_by": k_main["bound_by"],
          "library_ms": None},
         {"name": "raw_gram", "route": "cuda",
@@ -1187,7 +1432,8 @@ def main() -> int:
         {"name": "mask_evolve", "route": "cuda",
          "source": "src/repro_torch/csrc/mask_evolve.cu",
          "replaces": "src/repro/kernels/mask_evolve.py:110",
-         "launches": launches["mask_evolve"],
+         "launches": launches["mask_evolve"], "leaves": evolve_leaves,
+         "stage_ms": stage["ms"], "stage_device_ms": stage["device_ms"],
          "max_abs_err": max(r["max_abs_err"] for r in evolves),
          "ms": evolves[0]["ms"], "plain_ms": evolves[0]["plain_ms"],
          "bound_ms": evolves[0]["bound_ms"],

@@ -197,13 +197,13 @@ def stage_apply_masks():
 
 
 def stage_evolve_masks(fl, *, stream: str = "grow"):
-    """DisPFL mask evolution, leaf by leaf through `kernels.ops.mask_evolve`:
-    prune each stacked (M, …) leaf back to its `keep` largest magnitudes —
-    one threshold over all M clients' copies, as in the reference — regrow
-    where the leaf's bool plane is set (uniform > 1 − fl.dispfl_regrow),
-    re-project. The planes come from `ctx.draws[stream]` by leaf name, or
-    else from a generator on the leaves' device, in the reference's leaf
-    order."""
+    """DisPFL mask evolution of every leaf in one `kernels.ops.
+    mask_evolve_leaves` call: prune each stacked (M, …) leaf back to its
+    `keep` largest magnitudes — one threshold over all M clients' copies,
+    as in the reference — regrow where the leaf's bool plane is set
+    (uniform > 1 − fl.dispfl_regrow), re-project. The planes come from
+    `ctx.draws[stream]` by leaf name, or else from a generator on the
+    leaves' device, all drawn first, in the reference's leaf order."""
     sparsity, regrow = fl.dispfl_sparsity, fl.dispfl_regrow
 
     def evolve_masks(state, ctx):
@@ -213,23 +213,26 @@ def stage_evolve_masks(fl, *, stream: str = "grow"):
         if planes is None:
             device = next(iter(params.values())).device
             gen = device_generator(ctx.streams[stream], device)
-        new_params, new_mask = {}, {}
-        for name in leaf_order(params):
+        names = leaf_order(params)
+        grows = []
+        for name in names:
             leaf = params[name]
-            keep = max(int(leaf.numel() * (1 - sparsity)), 1)
             if gen is None:
                 grown = planes[name]
                 if not isinstance(grown, torch.Tensor):
                     grown = torch.from_numpy(np.array(grown))
-                grown = grown.to(leaf.device, torch.bool)
+                grows.append(grown.to(leaf.device, torch.bool))
             else:
-                grown = torch.rand(leaf.shape, generator=gen,
-                                   device=leaf.device) > (1.0 - regrow)
-            new_params[name], new_mask[name] = ops.mask_evolve(leaf, grown,
-                                                               keep=keep)
+                grows.append(torch.rand(leaf.shape, generator=gen,
+                                        device=leaf.device)
+                             > (1.0 - regrow))
+        keeps = [max(int(params[n].numel() * (1 - sparsity)), 1)
+                 for n in names]
+        done = dict(zip(names, ops.mask_evolve_leaves(
+            [params[n] for n in names], grows, keeps)))
         return {**state,
-                "params": {n: new_params[n] for n in params},
-                "mask": {n: new_mask[n] for n in params}}
+                "params": {n: done[n][0] for n in params},
+                "mask": {n: done[n][1] for n in params}}
 
     return evolve_masks
 

@@ -48,23 +48,24 @@ SIGNATURES = {
         c_void_p, c_void_p, c_void_p, c_void_p,          # x idx w out
         c_int, c_longlong, c_int, c_void_p,              # m f d stream
     ],
-    "repro_mask_evolve": [
-        c_void_p, c_int, c_void_p,                       # x dtype grow
-        c_longlong, c_longlong,                          # n target
-        c_void_p, c_void_p, c_void_p, c_void_p,          # counts out mask thr
-        c_void_p,                                        # stream
-    ],
+    "repro_mask_evolve_leaves": [
+        c_void_p, c_int, c_void_p, c_void_p,             # table leaves
+        c_int, c_int, c_void_p,                          # states thr grid
+    ],                                                   # grid_deep stream
     "repro_raw_gram_f32": [
         c_void_p, c_void_p, c_void_p,                    # x out work
         c_int, c_int, c_int, c_int, c_int, c_void_p,     # m p tile splits
     ],                                                   # chunk stream
     "repro_select_topk_f32": [
-        c_void_p, c_void_p, c_void_p, c_void_p, c_int,   # x inv last sl t
+        c_void_p, c_void_p, c_void_p, c_void_p, c_int,   # x work last sl t
         c_void_p, c_float, c_void_p,                     # cost cost_s cand
         c_void_p, c_void_p, c_void_p,                    # vals idx stats
         c_int, c_int, c_int,                             # m p k
-        c_float, c_float, c_void_p,                      # alpha lam stream
-    ],
+        c_float, c_float,                                # alpha lam
+        c_int, c_int, c_int, c_int, c_int,               # vec col_splits
+        c_void_p,                                        # tiles_per_split
+    ],                                                   # p_splits chunk
+                                                         # stream
     "repro_wkv_chunked": [
         c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,  # r k v w u
         c_void_p, c_void_p, c_void_p, c_void_p,            # s0 out s_fin

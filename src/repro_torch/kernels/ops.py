@@ -4,7 +4,7 @@
   * core/scoring.py  header_distance_matrix(use_kernel=True) → cosine_gram
   * core/scoring.py  score_topk                              → select_topk
   * fl/engine.py     mix_tree (packed gossip plans)          → gossip_mix
-  * fl/strategies.py stage_evolve_masks (dispfl)             → mask_evolve
+  * fl/strategies.py stage_evolve_masks (dispfl)      → mask_evolve_leaves
   * models/attention.py attend(backend="flash")              → flash_attention
   * models/rwkv.py   rwkv_prefill(backend="flash")           → wkv
 
@@ -47,6 +47,8 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "leaves"):
+            fn.leaves = 0
         for route in getattr(fn, "route_launches", {}):
             fn.route_launches[route] = 0
 
@@ -117,14 +119,27 @@ def gossip_mix(x, idx, w, *, impl: str | None = None):
 def mask_evolve(x, grow, *, keep: int, impl: str | None = None):
     """DisPFL mask evolution of one leaf: keep the `keep` largest |x|,
     regrow where `grow`, re-project. → (x·mask in x.dtype, mask bool).
-    Every route agrees bitwise."""
-    if _route(x, impl) == "cuda":
-        out, mask, _ = _me.mask_evolve_cuda(x.contiguous(),
-                                            grow.bool().contiguous(),
-                                            keep=keep)
+    The threshold is the exact (n − keep)-th smallest |x|: a radix select
+    on the card, the reference's bisection in the plain version. Every
+    route agrees bitwise."""
+    return mask_evolve_leaves([x], [grow], [keep], impl=impl)[0]
+
+
+def mask_evolve_leaves(leaves, grows, keeps, *, impl: str | None = None):
+    """`mask_evolve` over a list of leaves (a round's), leaf i with
+    grows[i] and keeps[i] → [(x·mask in x.dtype, mask bool)]. On the card
+    one kernel call covers every leaf; the plain route loops over
+    `mask_evolve_plain`. Every route agrees bitwise."""
+    if not leaves:
+        return []
+    if _route(leaves[0], impl) == "cuda":
+        done = _me.mask_evolve_leaves_cuda(
+            [x.contiguous() for x in leaves],
+            [g.bool().contiguous() for g in grows], keeps)
     else:
-        out, mask, _ = _me.mask_evolve_plain(x, grow, keep=keep)
-    return out, mask
+        done = [_me.mask_evolve_plain(x, g, keep=k)
+                for x, g, k in zip(leaves, grows, keeps)]
+    return [(out, mask) for out, mask, _ in done]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

@@ -79,6 +79,43 @@ def test_select_topk_kernel_matches_plain(cuda, m, k, matrix_cost, cand):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 17, 132, 1024, 4096])
+@pytest.mark.parametrize("k", [10, 32])
+def test_select_topk_kernel_matches_plain_where_the_plan_changes(cuda, m,
+                                                                 k):
+    """At M where select_plan changes (P splits at 16, 17, 132 and 1024;
+    column splits from 132; all of P a block at 4096), P = 5130, k capped
+    at M − 1: indices
+    exact but for swaps of scores within 1e-5 relative of each other (the
+    two Grams round differently), at most one in 2,000; values rtol 1e-4,
+    row stats rtol 1e-4 + atol 1e-6·M; a second call bitwise equal."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.select_score import select_plan
+
+    k = min(k, m - 1)
+    args = _case(m, 5130, m + k, cuda, matrix_cost=m % 2 == 0,
+                 cand=m == 132)
+    v, i, s = ops.select_topk(*args, k=k, alpha=ALPHA, lam=LAM)
+    assert ops.KERNELS["select_topk"].last_plan == select_plan(m, 5130)
+    v2, i2, s2 = ops.select_topk(*args, k=k, alpha=ALPHA, lam=LAM)
+    pv, pi, ps = ops.select_topk(*args, k=k, alpha=ALPHA, lam=LAM,
+                                 impl="plain")
+    bad = i != pi
+    if bad.any():
+        dense, _ = ref.select_score_ref(*args, alpha=ALPHA, lam=LAM)
+        rows, slots = bad.nonzero(as_tuple=True)
+        got_s = dense[rows, i[rows, slots].long()]
+        want_s = dense[rows, pi[rows, slots].long()]
+        assert bool(((got_s - want_s).abs() <= 1e-5 * want_s.abs()).all())
+        assert int(bad.sum()) * 2000 <= i.numel()
+    torch.testing.assert_close(v, pv, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(s, ps, rtol=1e-4, atol=1e-6 * m)
+    assert torch.equal(i, i2) and torch.equal(v.view(torch.int32),
+                                              v2.view(torch.int32))
+    assert torch.equal(s.view(torch.int32), s2.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_select_topk_kernel_ties_go_to_lowest_column(cuda):
     """Exactly tied scores: the lowest columns win, as in lax.top_k."""
     m, k = 70, 5
@@ -197,6 +234,112 @@ def test_new_kernels_count_launches_and_refuse_bad_input(cuda):
     with pytest.raises(ValueError):
         mask_evolve_cuda(leaf, torch.zeros_like(leaf, dtype=torch.bool),
                          keep=0)
+
+
+def _evolve_leaves(dev):
+    """A mixed list: float32 and bfloat16 leaves of 1 to 700,001 elements,
+    one with ties, one with ±0, one with ±inf, one an unaligned view (the
+    kernel's scalar loop), two (float32, bfloat16) with NaNs of both signs
+    covering the kth position (the threshold is the bisection's NaN end)
+    and two of subnormal magnitudes (a subnormal threshold); grow =
+    uniform > 0.98."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    leaves = []
+    for i, (n, dtype) in enumerate([
+            (1, torch.float32), (10, torch.bfloat16), (64, torch.float32),
+            (4097, torch.bfloat16), (700_001, torch.float32),
+            (700_001, torch.bfloat16), (65_536, torch.float32),
+            (3001, torch.bfloat16), (5000, torch.float32),
+            (1001, torch.bfloat16), (20_000, torch.float32),
+            (20_001, torch.bfloat16), (3000, torch.float32),
+            (30_000, torch.bfloat16)]):
+        x = torch.randn(n + 1, generator=g, device=dev)
+        if i == 3:
+            x = (x * 4).round() / 4                    # ties
+        if i == 6:
+            x[::3] = 0.0
+            x[1::3] = -0.0                             # ±0
+        if i == 7:
+            x[::5] = torch.inf
+            x[1::9] = -torch.inf                       # ±inf
+        if i in (10, 11):
+            x[::8] = torch.nan
+            x[4::8] = -torch.nan                       # 1/4 NaN
+        if i in (12, 13):
+            x = x * 1e-39                              # subnormal |x|
+            x[::7] = 0.0
+        x = x.to(dtype)
+        leaves.append(x[1:] if i == 9 else x[:n].clone())
+    grows = [torch.rand(x.shape, generator=g, device=dev) > 0.98
+             for x in leaves]
+    keeps = [max(x.numel() // 2, 1) for x in leaves]
+    keeps[4], keeps[5] = 1, leaves[5].numel()
+    keeps[10], keeps[11] = 20_000 // 8, 20_001 // 8   # kth in the NaNs
+    return leaves, grows, keeps
+
+
+def _same_bits(a, b):
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(a.view(bits), b.view(bits))
+
+
+@pytest.mark.cuda
+def test_mask_evolve_leaves_kernel_bitwise_equals_plain(cuda):
+    """One call over a mixed list: each leaf's threshold, mask and output
+    bits equal the plain version's (signed zeros count), and a second call
+    equals the first bitwise (integer counters only)."""
+    from repro_torch.kernels.mask_evolve import (NAN_END_BITS,
+                                                 mask_evolve_leaves_cuda,
+                                                 mask_evolve_plain)
+
+    leaves, grows, keeps = _evolve_leaves(cuda)
+    assert leaves[9].data_ptr() % 16 != 0
+    got = mask_evolve_leaves_cuda(leaves, grows, keeps)
+    again = mask_evolve_leaves_cuda(leaves, grows, keeps)
+    for x, grow, keep, (out, mask, thr), (out2, mask2, thr2) in zip(
+            leaves, grows, keeps, got, again):
+        p_out, p_mask, p_thr = mask_evolve_plain(x, grow, keep=keep)
+        assert _same_bits(thr, p_thr), (x.numel(), x.dtype)
+        assert torch.equal(mask, p_mask), (x.numel(), x.dtype)
+        assert _same_bits(out, p_out), (x.numel(), x.dtype)
+        assert _same_bits(thr2, thr) and torch.equal(mask2, mask)
+        assert _same_bits(out2, out)
+    # the edge leaves reach the cases they are there for
+    thr_bits = [int(t.view(torch.int32)) for _, _, t in got]
+    assert thr_bits[10] == thr_bits[11] == NAN_END_BITS
+    assert 0 < thr_bits[12] < 0x00800000 and 0 < thr_bits[13] < 0x00800000
+
+
+@pytest.mark.cuda
+def test_mask_evolve_leaves_counts_calls_and_leaves_and_refuses_bad_input(
+        cuda):
+    """A call counts one launch and its leaves, whatever their number; the
+    one-leaf entry point is its one-leaf case; bad input raises
+    ValueError before any launch."""
+    from repro_torch.kernels.mask_evolve import (mask_evolve_cuda,
+                                                 mask_evolve_leaves_cuda)
+
+    leaves, grows, keeps = _evolve_leaves(cuda)
+    ops.reset_launch_counts()
+    fn = ops.KERNELS["mask_evolve"]
+    assert (fn.launches, fn.leaves) == (0, 0)
+    ops.mask_evolve_leaves(leaves, grows, keeps)
+    assert (fn.launches, fn.leaves) == (1, len(leaves))
+    mask_evolve_cuda(leaves[0], grows[0], keep=1)
+    assert (fn.launches, fn.leaves) == (2, len(leaves) + 1)
+    x, g = leaves[2], grows[2]
+    for bad in ([], [x.half()], [x.cpu()]):
+        with pytest.raises(ValueError):
+            mask_evolve_leaves_cuda(bad, [g] * len(bad), [3] * len(bad))
+    with pytest.raises(ValueError):
+        mask_evolve_leaves_cuda([x, x], [g], [3, 3])
+    with pytest.raises(ValueError):
+        mask_evolve_leaves_cuda([x], [g], [x.numel() + 1])
+    with pytest.raises(ValueError):
+        mask_evolve_leaves_cuda([x], [g[:-1]], [3])
+    with pytest.raises(ValueError):
+        mask_evolve_leaves_cuda([x], [g.float()], [3])
+    assert (fn.launches, fn.leaves) == (2, len(leaves) + 1)
 
 
 # (B, Sq, Skv, H, K, hd, causal, window, q_offset)

@@ -36,15 +36,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import mask_evolve as ref_me
 from repro.kernels import peer_score as ref_ps
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.wkv_chunked import wkv_chunked as pallas_wkv
-from repro_torch.kernels import ref
+from repro_torch.kernels import mask_evolve, ref, select_score
 from repro_torch.kernels.peer_score import (FULL_M, MIN_SPLIT_P,
                                             gram_split_plan)
 from repro_torch.kernels.wkv_chunked import wkv_chunked_plain
 
+from test_torch_kernels import _assert_same_zeros_up_to_sign
 from test_torch_serve import WKV_CASES, _wkv_inputs
 
 BLOCK_Q, BLOCK_KV = 128, 64   # the wgmma kernel's q block and kv tile
@@ -497,3 +499,349 @@ def test_wkv_two_pass_needs_the_lo_terms():
         want, want_s = _wkv_wants(arrays, dtype, case[-1])[0]
         failed += _wkv_checks(got, got_s, want, want_s, dtype)
     assert failed, "one TF32 product passed every check"
+
+
+# ---------------------------------------------------------------------------
+# mask_evolve: radix select, one call over a list of leaves
+# ---------------------------------------------------------------------------
+
+def radix_select_emulation(x, kth):
+    """The kernel's threshold, pass for pass: 8-bit digits of |x|'s
+    float32 bits from the top (bits 30..24, 23..16, 15..8, 7..0; a
+    bfloat16 leaf stops after two), each pass a histogram of the digit
+    over the elements whose higher digits equal the prefix, then the first
+    digit at which the running count reaches the target left; the
+    elements below it leave the target. The result clamped to 0x7F800001,
+    where the bisection ends when the kth-smallest |x| is a NaN.
+    → (threshold bits as an int, passes taken)."""
+    bits = x.float().abs().reshape(-1).view(torch.int32).long()
+    passes = mask_evolve.PASSES[x.dtype]
+    prefix, target = 0, kth + 1
+    for pas, shift in enumerate(mask_evolve.DIGIT_SHIFTS[:passes]):
+        high = 31 if pas == 0 else shift + 8
+        same = (bits >> high) == (prefix >> high)
+        hist = torch.bincount((bits[same] >> shift) & 0xFF, minlength=256)
+        upto = torch.cumsum(hist, 0)
+        digit = int(torch.nonzero(upto >= target)[0])
+        target -= int(upto[digit] - hist[digit])
+        prefix |= digit << shift
+    return min(prefix, mask_evolve.NAN_END_BITS), passes
+
+
+def _radix_input(kind, dtype, seed):
+    """Magnitudes that stress the select: normal draws; heavy ties; ±0
+    beside small values; subnormals; +inf; a NaN at the kth position."""
+    rng = np.random.default_rng(seed)
+    n = 3001
+    if kind == "ties":
+        x = rng.integers(-3, 4, size=n).astype(np.float32) * 0.5
+    elif kind == "zeros":
+        x = rng.normal(size=n).astype(np.float32)
+        x[: n // 2] = 0.0
+        x[: n // 4] = -0.0
+    elif kind == "subnormal":
+        tiny = np.finfo(np.float32).tiny
+        x = (rng.integers(1, 60, size=n) * tiny / 64).astype(np.float32)
+        x *= rng.choice([-1, 1], size=n).astype(np.float32)
+        x[::7] = rng.normal(size=x[::7].shape)
+    elif kind == "inf":
+        x = rng.normal(size=n).astype(np.float32)
+        x[::5] = np.inf
+        x[1::9] = -np.inf
+    else:
+        x = rng.normal(size=n).astype(np.float32)
+    t = torch.from_numpy(x).to(dtype)
+    if kind == "nan":
+        t[n // 2:] = torch.nan       # the upper half, kth = n/2 among it
+    return t
+
+
+RADIX_KINDS = ["normal", "ties", "zeros", "subnormal", "inf", "nan"]
+
+
+@pytest.mark.parametrize("kind", RADIX_KINDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("keep_kind", ["one", "half", "all"])
+def test_radix_select_matches_bisection_and_reference(kind, dtype,
+                                                      keep_kind):
+    """Bitwise: the radix select's threshold against the plain version's
+    bisection and the reference's (`magnitude_threshold`); the Pallas
+    kernel (interpret) then gives the mask this threshold gives and the
+    output up to the sign of dropped zeros (and of dropped NaNs, which
+    its select makes 0), except where the threshold is subnormal: XLA on
+    the CPU flushes it and |x| to 0 before comparing. A NaN at the kth position
+    gives 0x7F800001, where the bisection ends then (a NaN threshold:
+    only the regrowth is kept); bfloat16 takes two passes."""
+    x = _radix_input(kind, dtype, seed=RADIX_KINDS.index(kind))
+    n = x.numel()
+    keep = {"one": 1, "half": n // 2, "all": n}[keep_kind]
+    got, passes = radix_select_emulation(x, n - keep)
+    assert passes == (2 if dtype == torch.bfloat16 else 4)
+    want = mask_evolve.magnitude_threshold_plain(x, n - keep)
+    assert got == int(want.view(torch.int32))
+    jx = jnp.asarray(x.float().numpy()).astype(
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    flat = jnp.abs(jx.astype(jnp.float32)).ravel()
+    ref_thr = np.asarray(ref_me.magnitude_threshold(flat, n - keep))
+    assert got == int(ref_thr.view(np.int32))
+    if kind == "nan" and keep_kind != "all":
+        assert got == mask_evolve.NAN_END_BITS
+    grow = torch.from_numpy(np.random.default_rng(n).uniform(size=n) > 0.98)
+    out, mask, thr = mask_evolve.mask_evolve_plain(x, grow, keep=keep)
+    if 0 < float(thr) < np.finfo(np.float32).tiny:
+        return   # XLA on the CPU flushes a subnormal |x| and threshold to 0
+    kern_out, kern_mask = ref_me.mask_evolve(jx, jnp.asarray(grow.numpy()),
+                                             keep=keep, interpret=True)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(kern_mask))
+    # XLA turns the Pallas kernel's x·mask into a select: a dropped NaN
+    # becomes 0 there, NaN in the product
+    real = ~torch.isnan(x)
+    _assert_same_zeros_up_to_sign(out[real], np.asarray(kern_out)[real.numpy()])
+
+
+def _find_leaf(begins, block):
+    """The kernel's search: the last row whose first block is ≤ block."""
+    lo, hi = 0, len(begins) - 1
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if begins[mid] <= block:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def _chunk_cover(n, nb, vec):
+    """How often the kernel's loops touch each element of an n-element
+    leaf with nb blocks: block j's threads take 16-byte vectors of `vec`
+    elements j·T + t, then + nb·T, …; then the elements past the last
+    whole vector the same way (vec = 1: the scalar loop alone)."""
+    t = mask_evolve.THREADS
+    cover = np.zeros(n, np.uint8)
+    nv = n // vec if vec > 1 else 0
+    for j in range(nb):
+        for u in range(j * t, nv, nb * t):
+            cover[u * vec:min(u + t, nv) * vec] += 1
+        for i in range(nv * vec + j * t, n, nb * t):
+            cover[i:min(i + t, n)] += 1
+    return cover
+
+
+def test_leaf_table_covers_every_element_once():
+    """Leaves of 1, 10, 2,359,296×16 and 700,001 elements, bfloat16 and
+    float32 mixed: every block of the grid finds one leaf, each leaf's
+    blocks are 0..nb−1, float32 leaves come first and own exactly the
+    first grid_deep blocks, and the vector and scalar loops touch every
+    element exactly once, with 16-byte vectors and without."""
+    sizes = [1, 10, 2_359_296 * 16, 700_001, 10, 700_001]
+    dtypes = [torch.bfloat16, torch.float32, torch.bfloat16, torch.bfloat16,
+              torch.bfloat16, torch.float32]
+    order, begins, grid, grid_deep = mask_evolve.leaf_plan(sizes, dtypes)
+    assert sorted(order) == list(range(len(sizes)))
+    deep = [mask_evolve.PASSES[dtypes[i]] == 4 for i in order]
+    assert deep == sorted(deep, reverse=True)
+    assert grid_deep == (begins[sum(deep)] if sum(deep) < len(order)
+                         else grid)
+    blocks = [mask_evolve.leaf_blocks(sizes[i]) for i in order]
+    assert begins == list(np.cumsum([0] + blocks[:-1]))
+    assert grid == sum(blocks)
+    seen = [[] for _ in order]
+    for b in range(grid):
+        row = _find_leaf(begins, b)
+        seen[row].append(b - begins[row])
+    assert seen == [list(range(nb)) for nb in blocks]
+    assert max(blocks) == mask_evolve.MAX_LEAF_BLOCKS
+    for row, i in enumerate(order):
+        vec = 8 if dtypes[i] == torch.bfloat16 else 4
+        for v in (vec, 1):
+            cover = _chunk_cover(sizes[i], blocks[row], v)
+            assert cover.min() == 1 and cover.max() == 1, (sizes[i], v)
+
+
+# ---------------------------------------------------------------------------
+# select_topk: column and P splits, an ordered top-k merge
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [1, 2, 15, 16, 17, 100, 132, 700, 1023, 1024,
+                               2100, 4096])
+@pytest.mark.parametrize("p", [1, 63, 65, 257, 5130, 5131, 70001])
+def test_select_plan_covers_columns_and_p_exactly(m, p):
+    """Column splits [c·per, min((c+1)·per, tiles)) tile the ceil(M/128)
+    column tiles, P chunks [s·chunk, min((s+1)·chunk, P)) tile P, none
+    empty; vec (4, 2 or 1) divides P and the chunk; P is split only while
+    the (row, column) tiles stay at most half the target, at least
+    MIN_SPLIT_P a chunk; at most one wave of TARGET_BLOCKS blocks where
+    the row tiles allow it."""
+    vec, splits, per, p_splits, chunk = select_score.select_plan(m, p)
+    tiles = math.ceil(m / select_score.TILE_N)
+    row_tiles = math.ceil(m / select_score.TILE_M)
+    assert (splits - 1) * per < tiles <= splits * per
+    assert (p_splits - 1) * chunk < p <= p_splits * chunk
+    assert vec in (1, 2, 4) and p % vec == 0 and chunk % vec == 0
+    assert vec == 4 or p % (2 * vec)
+    if p_splits > 1:
+        assert 2 * row_tiles * tiles <= select_score.TARGET_BLOCKS
+        assert chunk >= MIN_SPLIT_P - vec
+        assert row_tiles * tiles * p_splits <= select_score.TARGET_BLOCKS
+    assert row_tiles * splits <= select_score.TARGET_BLOCKS or splits == 1
+
+
+def test_select_plan_at_the_round_and_population_shapes():
+    """M = 16: one tile, so P is cut into ~80 chunks; M = 1024: one column
+    tile a split and two P chunks; M = 4096: 4 splits of 8 column tiles
+    (128 blocks, one wave), all of P in each block."""
+    assert select_score.select_plan(16, 5130) == (2, 1, 1, 78, 66)
+    assert select_score.select_plan(1024, 5130) == (2, 8, 1, 2, 2566)
+    assert select_score.select_plan(4096, 5130) == (2, 4, 8, 1, 5130)
+
+
+def _fold(carry_v, carry_i, v, c):
+    """The kernel's insertion, for every row at once: v enters if it beats
+    the k-th strictly, behind every entry ≥ v (ties keep the earlier)."""
+    k = carry_v.shape[1]
+    pos = (carry_v >= v[:, None]).sum(1, keepdim=True)
+    j = torch.arange(k)[None, :]
+    prev_v = torch.cat([carry_v[:, :1], carry_v[:, :-1]], 1)
+    prev_i = torch.cat([carry_i[:, :1], carry_i[:, :-1]], 1)
+    new_v = torch.where(j < pos, carry_v,
+                        torch.where(j == pos, v[:, None], prev_v))
+    new_i = torch.where(j < pos, carry_i,
+                        torch.where(j == pos, c[:, None], prev_i))
+    return new_v, new_i
+
+
+def split_topk_emulation(scores, k, *, splits, per, tile):
+    """Top-k of dense (M, M) scores as the kernel forms it: split c folds
+    its column tiles [c·per, (c+1)·per) of `tile` columns in ascending
+    column order into a carry of k (−inf, 0) entries; then the splits'
+    carries are folded in ascending split order, each list in its own
+    (descending) order. → (values, int32 indices)."""
+    m = scores.shape[0]
+    carries = []
+    for c in range(splits):
+        cv = torch.full((m, k), -torch.inf)
+        ci = torch.zeros((m, k), dtype=torch.int64)
+        for col in range(c * per * tile, min((c + 1) * per * tile, m)):
+            cv, ci = _fold(cv, ci, scores[:, col],
+                           torch.full((m,), col, dtype=torch.int64))
+        carries.append((cv, ci))
+    mv, mi = carries[0]
+    for cv, ci in carries[1:]:
+        for j in range(k):
+            mv, mi = _fold(mv, mi, cv[:, j], ci[:, j])
+    return mv, mi.to(torch.int32)
+
+
+def _tie_inputs(m, p, kind, seed):
+    """Tie-heavy select inputs: `columns` — the rows of x take a few
+    values, so whole columns of cos are equal; `all` — every row of x
+    equal, s_l one value and never selected, so every off-diagonal score
+    is equal; `draw` — normal draws."""
+    rng = np.random.default_rng(seed)
+    x, last, s_l, t, cost, mask = _select_inputs(m, p, rng)
+    if kind == "columns":
+        x = x[rng.integers(0, min(3, m), size=m)]
+        s_l = np.repeat(s_l[:, :1], m, axis=1)
+        last[...] = -1
+    elif kind == "all":
+        x = np.repeat(x[:1], m, axis=0)
+        s_l[...] = 1.5
+        last[...] = -1
+    return x, last, s_l, t, cost, mask
+
+
+def _select_inputs(m, p, rng):
+    x = rng.normal(size=(m, p)).astype(np.float32)
+    last = rng.integers(-1, 3, size=(m, m)).astype(np.int32)
+    s_l = rng.uniform(0.0, 3.0, size=(m, m)).astype(np.float32)
+    return x, last, s_l, 3, np.float32(1.0), None
+
+
+SPLIT_CASES = [(1, 1), (2, 1), (16, 4), (16, 15), (17, 16), (17, 10),
+               (1024, 10), (1024, 32)]
+
+
+@pytest.mark.parametrize("m,k", SPLIT_CASES)
+@pytest.mark.parametrize("kind", ["columns", "all", "draw"])
+def test_split_topk_merge_reproduces_stable_topk(m, k, kind):
+    """The fold of each split's column tiles and the ordered merge of the
+    splits give `select_topk_ref`'s values and indices exactly, ties to the
+    lowest column: with the kernel's plan (128-column tiles) and with a
+    narrow one (4-column tiles, 2 a split) that puts tied columns in
+    different splits at every M."""
+    args = _tie_inputs(m, 33, kind, seed=m + k)
+    targs = [torch.from_numpy(np.asarray(a)) if isinstance(a, np.ndarray)
+             else a for a in args]
+    targs[4] = float(targs[4])
+    want_v, want_i, _ = ref.select_topk_ref(*targs, k=k, alpha=1.0, lam=0.5)
+    scores, _ = ref.select_score_ref(*targs, alpha=1.0, lam=0.5)
+    _, splits, per, _, _ = select_score.select_plan(m, 33)
+    narrow = math.ceil(math.ceil(m / 4) / 2)
+    for plan in ((splits, per, select_score.TILE_N), (narrow, 2, 4)):
+        v, i = split_topk_emulation(scores, k, splits=plan[0], per=plan[1],
+                                    tile=plan[2])
+        assert torch.equal(i, want_i), plan
+        assert torch.equal(v, want_v), plan
+    if kind == "all" and m > 2:
+        assert (want_i[:, 0] == (torch.arange(m) == 0).int()).all()
+
+
+@pytest.mark.parametrize("kind", ["columns", "draw"])
+def test_split_topk_merge_matches_pallas(kind):
+    """At M = 37, P = 130, k = 10, in 4-column tiles 2 to a split (5
+    splits): the emulated merge of the port's dense scores gives the
+    Pallas select_topk's (interpret) indices exactly and its values within
+    rtol 1e-5 (the two Grams sum P products in other orders)."""
+    from repro.kernels import select_score as ref_ss
+
+    m, k = 37, 10
+    x, last, s_l, t, cost, mask = _tie_inputs(m, 130, kind, seed=5)
+    rv, ri, _ = ref_ss.select_topk(jnp.asarray(x), jnp.asarray(last),
+                                   jnp.asarray(s_l), jnp.int32(t),
+                                   jnp.asarray(cost), None, k=k, alpha=1.0,
+                                   lam=0.5, interpret=True)
+    scores, _ = ref.select_score_ref(torch.from_numpy(x),
+                                     torch.from_numpy(last),
+                                     torch.from_numpy(s_l), t, float(cost),
+                                     alpha=1.0, lam=0.5)
+    v, i = split_topk_emulation(scores, k, splits=5, per=2, tile=4)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(v.numpy(), np.asarray(rv), rtol=1e-5)
+
+
+@pytest.mark.parametrize("m", [2, 16, 17, 132])
+def test_p_split_route_matches_reference_and_pallas(m):
+    """The P-split route's arithmetic at P = 5130: partial Grams over the
+    plan's P chunks, summed in ascending order, then the cosine and Eq. 9,
+    within 1e-5 of the reference's dense scores (`select_score_ref`); its
+    top-k through the split merge gives the Pallas select_topk's
+    (interpret) indices exactly and values within rtol 1e-5."""
+    from repro.kernels import select_score as ref_ss
+
+    k = min(10, m - 1)
+    rng = np.random.default_rng(m)
+    x, last, s_l, t, cost, _ = _select_inputs(m, 5130, rng)
+    _, splits, per, p_splits, chunk = select_score.select_plan(m, 5130)
+    assert p_splits > 1
+    xt = torch.from_numpy(x)
+    gram = None
+    for s in range(p_splits):
+        part = xt[:, s * chunk:(s + 1) * chunk]
+        gram = part @ part.T if gram is None else gram + part @ part.T
+    inv = ref.inverse_norms(xt)
+    cos = (gram * inv[:, None] * inv[None, :]).clamp(-1.0, 1.0)
+    sp = ref.recency(torch.from_numpy(last), t, 0.5)
+    got = sp * (1.0 * torch.from_numpy(s_l) - cos + float(cost))
+    got.fill_diagonal_(ref.NEG)
+    jargs = (jnp.asarray(x), jnp.asarray(last), jnp.asarray(s_l),
+             jnp.int32(t), jnp.asarray(cost))
+    want, _ = jref.select_score_ref(*jargs, alpha=1.0, lam=0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    rv, ri, _ = ref_ss.select_topk(*jargs, None, k=k, alpha=1.0, lam=0.5,
+                                   interpret=True)
+    v, i = split_topk_emulation(got, k, splits=splits, per=per,
+                                tile=select_score.TILE_N)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(v.numpy(), np.asarray(rv), rtol=1e-5)
