@@ -21,21 +21,26 @@ Phases, each of which fails the script (non-zero exit) on any fault:
 2. kernels  each kernel against its plain PyTorch version on the card, at
             the rounds' shapes and at population scale. Times by CUDA
             events after warm-up.
-            select_topk (M=16, P=5130 header elements, k=4; M=1024, 4096,
-            k=10; scalar and matrix Eq. 9 cost, a candidate mask): indices
+            select_topk (M=16, P=5130 header elements, k=4: scalar or
+            matrix Eq. 9 cost, with or without a candidate mask, the
+            matrix cost with the mask being what the main path sends under
+            a fabric; M=1024, 4096, k=10): indices
             exact (a flip is allowed only between scores within 1e-5
             relative, and is counted), values rtol 1e-4, row stats rtol
             1e-4 + atol 1e-6·M (sums of M cosines); each row names the
             split plan (`select_plan`), and the scalar-cost rows at M=16,
-            1024 and 4096 give the device time from CUDA-graph replay and
-            the host's own time a call beside the per-call time.
+            1024 and 4096 and the M=16 row with cost matrix and mask give
+            the device time from CUDA-graph replay and the host's own time
+            a call beside the per-call time.
             raw_gram (M=16, 1024, 4096; P=5130): error ≤ 1e-4 × the
             largest entry (fp32 sums of P products in another order), a
             second launch bitwise equal (split-K sums its splits in a fixed
             order), the split count, and besides the per-call time the
             device time from CUDA-graph replay, for torch.matmul too.
             gossip_mix (a dfedpgp plan at M=16, F=11,167,040 — the
-            ResNet-18 extractor — D=5; M=1024, F=65,536, D=11): bitwise.
+            ResNet-18 extractor — D=5; M=1024, F=65,536, D=11; M=16,
+            F=1,000,003, D=5, whose odd width takes the phased path with
+            4-byte loads): bitwise.
             mask_evolve (the dispfl round's largest and smallest stacked
             leaves, 16×2,359,296 and 16×10 in bf16, and 16×64; keep = n/2,
             regrow 0.02): threshold, mask and output bits equal. Edge
@@ -85,7 +90,12 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             parameter leaves (the `leaves` counter). Losses and
             accuracy must be finite; every active client must select
             exactly k peers (pfeddst, dfedpgp) or at least k (the
-            undirected plans), inactive ones none.
+            undirected plans), inactive ones none. All of these run under
+            the default comms fabric (full topology, uniform links, no
+            events): every round must report nonzero `round_bytes`. Then
+            pfeddst runs 3 rounds twice more with cuDNN deterministic,
+            once with `comms=None` and once under the default fabric: the
+            two must select the same peers in every round.
             Then `serve_requests` (launch/serve.py) for qwen2-1.5b and
             rwkv6-7b at full width and depth in bf16 with random weights:
             batch 4, prompt 4096, 32 greedy tokens, 3 requests each, the
@@ -110,12 +120,35 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             the KV cache / rwkv state within 1e-4 of their scale.
 5. profile  one more pfeddst round under torch.profiler; the top CUDA
             kernels by time go to chiprun_out/chip_smoke_profile.txt.
+6. fabric   the comms fabric at the settings of phase 3, 3 rounds each.
+            On a ring with hetero links, 10% link drops, 90% availability
+            and 10% staleness: pfeddst (select_topk, every call given the
+            candidate mask and the (M, M) cost matrix), pfeddst_random
+            (raw_gram), dfedpgp, dfedavgm and dispfl (gossip_mix; the
+            undirected plans pack at the ring's D = 3) and fedavg (star
+            accounting). Each round: online participants, edges inside the
+            round's candidate mask, `round_bytes` and the network time
+            equal to the host transport's price of the round's edges at one
+            message's bytes drawn independently (dispfl's is 1 − sparsity
+            of the extractor's), the path's kernel launched. dfedavgm's
+            last plan mixed by the kernel at the model's width: within rtol
+            1e-3 of the dense mix, bitwise equal to the plain version,
+            timed. pfeddst on hier_ring (clusters of 4, k = 2) through the
+            packed SparseFabric and the dense fabric (cuDNN deterministic):
+            equal masks every round. The packed fabric at M = 65536
+            (hier_ring of 16, hetero links, events), P = 5130 f32 headers:
+            one round_slots, one score_topk_sparse (k = 4), one gossip_mix
+            with D = 5; times, peak memory, selected peers checked against
+            the live CSR edges, the mix bitwise against the plain version
+            on 4096 rows, beside a CSR sparse × dense product.
 
 Output: each phase's wall, the card's name and power limit (nvidia-smi),
-one `kernels` JSON line (mask_evolve's `launches` counts calls, each
-of 3–5 kernel launches, and its row also gives the leaves those calls
-covered and the whole stage's time and device time; select_topk's
-its device time at M=16), the round walls, and last
+one `kernels` JSON line (`launches` from phase 3's run of the kernel's
+path, `launches_fabric` from each phase-6 run; mask_evolve's count calls,
+each of 3–5 kernel launches, and its row also gives the leaves those
+calls covered and the whole stage's time and device time; select_topk's
+times are those of the M=16 case with the cost matrix and candidate mask
+the main path sends, device time included), the round walls, and last
 `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -804,7 +837,8 @@ def run_path(name, cfg, fl, data, rounds, dev, run_experiment, ops,
     """One strategy's run; the launch counters are set to 0 just before
     it and read after each of its rounds. Each kernel of the path must
     launch in every round; mask_evolve exactly once a dispfl round, over
-    all `n_leaves` leaves."""
+    all `n_leaves` leaves. Under the default fabric every round must
+    report bytes."""
     k = min(fl.peers_per_round, fl.num_clients - 1)
     n_active = max(1, int(round(fl.num_clients * fl.client_sample_ratio)))
     edges, counts = [], []
@@ -850,8 +884,11 @@ def run_path(name, cfg, fl, data, rounds, dev, run_experiment, ops,
             raise AssertionError(f"{name}: {key} not finite: {vals}")
     if not all(math.isfinite(a) for a in h["accuracy"]):
         raise AssertionError(f"{name}: accuracy not finite")
+    if fl.comms is not None and min(h["round_bytes"]) <= 0:
+        raise AssertionError(f"{name}: round_bytes {h['round_bytes']}")
     return dict(name=name, round_walls_s=walls, total_s=total,
                 accuracy=h["accuracy"], edges=edges, launches=launches,
+                round_bytes=h["round_bytes"],
                 **{key: h["extra"][key] for key in loss_keys[:1]})
 
 
@@ -1160,6 +1197,367 @@ def check_serve_agreement(dev):
     return out
 
 
+# phase 6: the comms fabric
+# ---------------------------------------------------------------------------
+
+# the dense fabric's network: a ring with hetero links and every event
+FABRIC_NET = dict(topology="ring", link_model="hetero", p_link_drop=0.1,
+                  availability=0.9, p_stale=0.1)
+# the kernel each strategy must launch in every round on the ring (the
+# undirected plans pack at D = degree + 1 = 3 there)
+FABRIC_KERNELS = {"pfeddst": "select_topk", "pfeddst_random": "raw_gram",
+                  "dfedpgp": "gossip_mix", "dfedavgm": "gossip_mix",
+                  "dispfl": "gossip_mix"}
+MODEL_F = 11_172_170       # ResNet-18: extractor + the 512×10 head and bias
+
+
+def message_bytes(cfg, name, fl, dev) -> int:
+    """One message of `name`, from one client's freshly drawn parameters
+    (independent of the simulator's own accounting): the model for fedavg
+    and dfedavgm, the extractor otherwise, dispfl's (1 − sparsity) of it."""
+    import torch
+
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.split import split_params
+    from repro_torch.utils.pytree import tree_bytes
+
+    params = model_mod.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tree = params if name in ("fedavg", "dfedavgm") else \
+        split_params(cfg, params)[0]
+    fraction = 1 - fl.dispfl_sparsity if name == "dispfl" else 1.0
+    return int(round(tree_bytes(tree) * fraction))
+
+
+def run_fabric_path(name, cfg, fl, data, rounds, dev, run_experiment, ops):
+    """One strategy's run on a fabric; the launch counters are set to 0 just
+    before it and read after each round. Each round: the active clients
+    are online and the edges lie inside the round's candidate mask (both
+    drawn again on the host from the round's network streams); round_bytes
+    and the network time equal the host transport's price of the round's
+    edges (or the star's uploads and downloads) at `message_bytes`, and
+    the bytes are messages × that payload; the path's kernel launched.
+    pfeddst's select_topk calls must all take the candidate mask and the
+    (M, M) cost matrix."""
+    import torch
+
+    from repro_torch.comms import make_fabric
+    from repro_torch.fl.engine import net_streams
+
+    host = make_fabric(fl.comms, fl.num_clients, cost_scale=fl.comm_cost,
+                       device="cpu")
+    packed = hasattr(host, "round_slots")
+    star = name in ("fedavg", "fedper", "fedbabu")
+    payload = message_bytes(cfg, name, fl, dev)
+    want, counts, calls, masks = [], [], [], []
+    original = ops.select_topk
+
+    def spy(x, last, s_l, t, cost, cand=None, **kw):
+        calls.append([x.is_cuda, isinstance(cost, torch.Tensor)
+                      and cost.dim() == 2, cand is not None])
+        return original(x, last, s_l, t, cost, cand, **kw)
+
+    def on_round(r, met):
+        counts.append(ops.launch_counts())
+        first, avail, _ = (host.round_slots(net_streams((0, r))) if packed
+                           else host.round_masks(net_streams((0, r))))
+        cand = host.cand_dense(first) if packed else first
+        active = met["active"].cpu()
+        if bool((active & ~avail).any()):
+            raise AssertionError(f"{name} round {r}: an offline client "
+                                 "trained")
+        if star:
+            msgs = 2 * int(active.sum())
+            stats = host.account_round("star", {"active": active}, payload)
+        else:
+            edges = met["select_mask" if name.startswith("pfeddst")
+                        else "comm_edges"].cpu()
+            masks.append(edges)
+            if bool((edges & ~cand).any()):
+                raise AssertionError(f"{name} round {r}: edges outside the "
+                                     "round's candidate mask")
+            msgs = int(edges.sum())
+            stats = host.account_round("p2p", {"comm_edges": edges}, payload)
+        if stats.total_bytes != msgs * payload:
+            raise AssertionError(f"{name} round {r}: {stats.total_bytes} "
+                                 f"bytes for {msgs} messages of {payload}")
+        want.append((stats.total_bytes, stats.sim_time_s))
+
+    ops.select_topk = spy
+    ops.reset_launch_counts()
+    try:
+        hist = run_experiment(name, cfg, fl, data, num_rounds=rounds,
+                              eval_every=rounds, steps_per_epoch=2, seed=0,
+                              verbose=False, device=dev, on_round=on_round)
+    finally:
+        ops.select_topk = original
+    h = hist.to_dict()
+    got = list(zip(h["round_bytes"], h["round_net_time_s"]))
+    if got != want:
+        raise AssertionError(f"{name}: History (bytes, net s) {got}, the "
+                             f"host transport {want}")
+    kernel = FABRIC_KERNELS.get(name)
+    per_round = {}
+    for k in ops.KERNELS:
+        per_round[k] = [b[k] - a[k] for a, b in
+                        zip([dict.fromkeys(ops.KERNELS, 0)] + counts, counts)]
+    if kernel is not None and min(per_round[kernel]) < 1:
+        raise AssertionError(f"{name}: {kernel} launches per round "
+                             f"{per_round[kernel]}")
+    if name == "pfeddst" and (len(calls) != rounds or
+                              not all(all(c) for c in calls)):
+        raise AssertionError(f"pfeddst: select_topk calls (on the card, "
+                             f"matrix cost, candidates) {calls}")
+    if not all(math.isfinite(a) for a in h["accuracy"]):
+        raise AssertionError(f"{name}: accuracy not finite")
+    steady = h["wall_s"]
+    return dict(name=name, payload_bytes=payload, round_bytes=h["round_bytes"],
+                round_net_time_s=h["round_net_time_s"],
+                round_stale_lag=h["round_stale_lag"],
+                energy_j=h["energy_j"], compile_s=h["compile_s"],
+                steady_s=steady[-1], launches=ops.launch_counts(),
+                select_calls=calls, masks=masks)
+
+
+def check_ring_mix(ops, ref, edges, k, dev, f=MODEL_F):
+    """dfedavgm's plan of a ring round packed at the topology bound (D =
+    3) and mixed by the kernel, against the dense mix of the same plan
+    (phase 4's f32 tolerance: rtol 1e-3, atol 1e-3 × scale) and bitwise
+    against the plain version, at the model's width; timed (`check_gossip`)."""
+    import torch
+
+    from repro_torch.core.aggregation import selection_to_weights
+    from repro_torch.kernels.gossip_mix import (gossip_degree_bound,
+                                                weights_to_neighbors)
+
+    m = edges.shape[0]
+    w = selection_to_weights(edges.to(dev), include_self=True)
+    idx, wl = weights_to_neighbors(w, gossip_degree_bound(
+        k, m, directed=False, topo_degree=2))
+    x = torch.randn((m, f), generator=torch.Generator(
+        device=dev).manual_seed(31), device=dev)
+    packed = ops.gossip_mix(x, idx, wl)
+    dense = w @ x
+    scale = float(dense.abs().max())
+    torch.testing.assert_close(packed, dense, rtol=1e-3, atol=1e-3 * scale)
+    row = check_gossip(ops, ref, (x, idx, wl), 20, 3)
+    row["max_abs_diff_dense"] = float((packed - dense).abs().max())
+    return row
+
+
+def pfeddst_masks(cfg, fl, data, dev, run_experiment, ops, rounds):
+    """pfeddst's selection mask of every round, and the run's launch
+    counts (set to 0 just before it), with cuDNN held deterministic so
+    that two runs meant to select alike can be compared round by round."""
+    import torch
+
+    got = []
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        ops.reset_launch_counts()
+        run_experiment("pfeddst", cfg, fl, data, num_rounds=rounds,
+                       eval_every=rounds, steps_per_epoch=2, seed=0,
+                       verbose=False, device=dev,
+                       on_round=lambda r, met: got.append(
+                           met["select_mask"].cpu()))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = flags
+    return got, ops.launch_counts()
+
+
+def compare_masks(what, a, b):
+    for r, (x, y) in enumerate(zip(a, b, strict=True)):
+        if not x.equal(y):
+            raise AssertionError(
+                f"{what} round {r}: masks differ in rows "
+                f"{(x != y).any(1).nonzero().flatten().tolist()}")
+
+
+def check_packed_vs_dense(cfg, fl, data, dev, run_experiment, ops, rounds):
+    """pfeddst on hier_ring (clusters of 4, availability and staleness
+    events, no link drops) through the packed SparseFabric and through
+    the dense fabric: the same selection masks every round. k = 2 of at
+    most 4 neighbours, so rows rank their candidates (at k = 4 every row
+    would take all of them). cuDNN is held deterministic for both runs."""
+    from repro_torch.configs import CommsConfig
+
+    net = dict(topology="hier_ring", hier_cluster=4, link_model="hetero",
+               availability=0.9, p_stale=0.1)
+    masks, launches = {}, {}
+    for sparse in (False, True):
+        flp = dataclasses.replace(fl, peers_per_round=2,
+                                  comms=CommsConfig(sparse=sparse, **net))
+        kind = "packed" if sparse else "dense"
+        masks[sparse], launches[kind] = pfeddst_masks(
+            cfg, flp, data, dev, run_experiment, ops, rounds)
+    compare_masks("packed vs dense fabric", masks[False], masks[True])
+    if launches["dense"]["select_topk"] != rounds or \
+            launches["packed"]["select_topk"] != 0:
+        raise AssertionError(f"select_topk launches {launches}")
+    return dict(rounds=rounds, edges=[int(m.sum()) for m in masks[True]],
+                launches=launches)
+
+
+def check_packed_scale(ops, ref, dev, m=65536, p=5130):
+    """The packed fabric at its own scale: M = 65536 on hier_ring (clusters
+    of 16, hetero links, 10% link drops, 90% availability), ResNet-18's
+    header width P = 5130 in f32 (1.34 GB). One round_slots, one
+    score_topk_sparse (k = 4) and one gossip_mix over the headers with
+    D = k + 1 = 5 (self first), each timed after; the peak memory of
+    the three. The launch counters are set to 0 just before round_slots
+    and read after the mix (`launches`). Checks: every selected peer is a
+    live CSR edge of its row; the mix equals gossip_mix's plain version
+    bitwise on 4096 rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comms import make_fabric
+    from repro_torch.configs import CommsConfig
+    from repro_torch.core.scoring import score_topk_sparse
+    from repro_torch.core.selection import NEG
+    from repro_torch.fl.engine import net_streams
+    from repro_torch.kernels.gossip_mix import gossip_mix_plain
+
+    k = 4
+    t0 = time.perf_counter()
+    fab = make_fabric(CommsConfig(topology="hier_ring", hier_cluster=16,
+                                  link_model="hetero", p_link_drop=0.1,
+                                  availability=0.9, sparse=True), m,
+                      device=dev)
+    build_s = time.perf_counter() - t0
+    d = fab.nbr_idx.shape[1]
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((m, p), generator=g, device=dev)
+    last = torch.randint(-1, 8, (m, d), generator=g, device=dev,
+                         dtype=torch.int32)
+    s_l = torch.rand((m, d), generator=g, device=dev) * 3.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+
+    def slots():
+        return fab.round_slots(net_streams((0, 0)))
+
+    def score(slot_mask):
+        return score_topk_sparse(x, last, s_l, 7, nbr_idx=fab.nbr_idx,
+                                 nbr_valid=slot_mask, alpha=1.0, lam=0.5,
+                                 comm_cost=fab.slot_cost, k=k)
+
+    walls = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    slot_mask, _, _ = slots()
+    torch.cuda.synchronize()
+    walls["round_slots"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vals, idx, _ = score(slot_mask)
+    torch.cuda.synchronize()
+    walls["score_topk_sparse"] = time.perf_counter() - t0
+    sel = vals > NEG / 2
+    rows = torch.arange(m, device=dev, dtype=torch.int32)[:, None]
+    inv = 1.0 / (sel.sum(1, keepdim=True) + 1.0)
+    idx_mix = torch.cat([rows, idx], 1)
+    w_mix = torch.cat([inv, torch.where(sel, inv, 0.0)], 1)
+    t0 = time.perf_counter()
+    mixed = ops.gossip_mix(x, idx_mix, w_mix)
+    torch.cuda.synchronize()
+    walls["gossip_mix"] = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if launches["gossip_mix"] != 1:
+        raise AssertionError(f"packed scale: launches {launches}")
+    # every selected peer is a live edge slot of its row
+    sel_np, idx_np = sel.cpu().numpy(), idx.long().cpu().numpy()
+    r_sel = np.repeat(np.arange(m), k).reshape(m, k)[sel_np]
+    c_sel = idx_np[sel_np]
+    keys = r_sel * m + c_sel
+    all_keys = fab.topo.edge_rows().astype(np.int64) * m + fab.topo.indices
+    pos = np.searchsorted(all_keys, keys)
+    pos_c = np.clip(pos, 0, len(all_keys) - 1)
+    if not (all_keys[pos_c] == keys).all():
+        raise AssertionError("packed scale: a selected peer is no CSR edge")
+    slot = pos_c - fab.topo.indptr[r_sel]
+    if not slot_mask.cpu().numpy()[r_sel, slot].all():
+        raise AssertionError("packed scale: a selected edge is not live")
+    n_live = int(slot_mask.sum())
+    if int(sel.sum()) != int(np.minimum(
+            slot_mask.sum(1).cpu().numpy(), k).sum()):
+        raise AssertionError("packed scale: a row selected fewer than "
+                             "min(k, live neighbours) peers")
+    sub = torch.randperm(m, generator=torch.Generator().manual_seed(5))[
+        :min(m, 4096)].to(dev)
+    want = gossip_mix_plain(x, idx_mix[sub], w_mix[sub])
+    err = float((mixed[sub] - want).abs().max())
+    if not torch.equal(mixed[sub].view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("packed scale: gossip_mix differs from the "
+                             "plain version")
+    # times (CUDA events), the mix beside its plain version, its bound and
+    # one library call (a CSR sparse × dense product)
+    ms = time_ms(lambda: ops.gossip_mix(x, idx_mix, w_mix), 10)
+    plain_ms = time_ms(lambda: gossip_mix_plain(x, idx_mix, w_mix), 1, 1)
+    live = w_mix != 0
+    coo = torch.sparse_coo_tensor(
+        torch.stack([rows.expand_as(idx_mix)[live].long(),
+                     idx_mix[live].long()]), w_mix[live], (m, m))
+    w_csr = coo.coalesce().to_sparse_csr()
+    library_ms = time_ms(lambda: torch.sparse.mm(w_csr, x), 10)
+    lib = torch.sparse.mm(w_csr, x)
+    lib_err = float((lib - mixed).abs().max())
+    n_rows = int(torch.unique(idx_mix[live]).numel())
+    b_ms, b_by = bound(n_rows * p * 4 + idx_mix.numel() * 8 + m * p * 4,
+                       2.0 * int(live.sum()) * p)
+    return dict(m=m, p=p, d_topology=d, d_mix=idx_mix.shape[1], k=k,
+                fabric_build_s=build_s, edges=fab.topo.num_edges,
+                live_slots=n_live, selected=int(sel.sum()),
+                walls_s=walls, launches=launches,
+                round_slots_ms=time_ms(slots, 5),
+                score_topk_sparse_ms=time_ms(lambda: score(slot_mask), 3),
+                peak_mem_gb=peak_gb,
+                peak_above_inputs_gb=peak_gb - base / 1e9,
+                gossip_mix=dict(m=m, f=p, d=idx_mix.shape[1],
+                                nonzero=int(live.sum()), max_abs_err=err,
+                                ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=library_ms,
+                                library_max_abs_diff=lib_err))
+
+
+def fabric_phase(cfg, fl, data, dev, run_experiment, ops, ref) -> dict:
+    """Phase 6 (module docstring); prints its rows and returns each run's
+    launch counts by run name."""
+    from repro_torch.configs import CommsConfig
+
+    fl_ring = dataclasses.replace(fl, comms=CommsConfig(**FABRIC_NET))
+    runs = [run_fabric_path(name, cfg, fl_ring if name.startswith("pfeddst")
+                            else dataclasses.replace(fl_ring,
+                                                     lr=BASELINE_LR),
+                            data, 3, dev, run_experiment, ops)
+            for name in ("pfeddst", "pfeddst_random", "dfedpgp", "dfedavgm",
+                         "dispfl", "fedavg")]
+    launches = {r["name"] + "[ring]": r["launches"] for r in runs}
+    for run in runs:
+        print("fabric", json.dumps({k: v for k, v in run.items()
+                                    if k != "masks"}), flush=True)
+    ring_edges = next(r["masks"] for r in runs if r["name"] == "dfedavgm")[-1]
+    ring_mix = check_ring_mix(ops, ref, ring_edges, fl.peers_per_round, dev)
+    print("fabric ring mix (dfedavgm's plan at D = 3, model width; packed "
+          "kernel against the dense mix and the plain version)",
+          json.dumps(ring_mix), flush=True)
+    packed = check_packed_vs_dense(cfg, fl, data, dev, run_experiment, ops,
+                                   3)
+    launches.update({f"pfeddst[hier_ring, {kind}]": counts
+                     for kind, counts in packed["launches"].items()})
+    print("fabric packed vs dense (hier_ring, pfeddst): masks equal",
+          json.dumps(packed), flush=True)
+    scale = check_packed_scale(ops, ref, dev)
+    launches["packed_65536"] = scale["launches"]
+    print("fabric packed scale", json.dumps(scale), flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1217,12 +1615,16 @@ def main() -> int:
     t_phase = time.perf_counter()
     # ---- 2. kernels against their plain versions ---------------------------
     p = 512 * 10 + 10          # ResNet-18 header: fc weight + bias
+    # the last case is what the main path sends since the default fabric:
+    # the (M, M) cost matrix and the candidate mask; its row is the
+    # kernel's line
     main_sel = []
-    for matrix_cost, cand in ((False, False), (True, False), (False, True)):
+    for matrix_cost, cand in ((False, False), (True, False), (False, True),
+                              (True, True)):
         main_sel.append(check_select(
             ops, ref, select_case(16, p, 4, matrix_cost=matrix_cost,
                                   cand=cand, seed=1, dev=dev), 4, 200,
-            graph=not (matrix_cost or cand)))
+            graph=matrix_cost == cand))
     scale_sel = [
         check_select(ops, ref, select_case(1024, p, 10, matrix_cost=False,
                                            cand=False, seed=2, dev=dev),
@@ -1247,7 +1649,9 @@ def main() -> int:
     mixes = [check_gossip(ops, ref, gossip_case(16, extractor_f, 4, 4, 8,
                                                 dev), 20, 3),
              check_gossip(ops, ref, gossip_case(1024, 65_536, 10, 1024, 9,
-                                                dev), 10, 3)]
+                                                dev), 10, 3),
+             check_gossip(ops, ref, gossip_case(16, 1_000_003, 4, 4, 10,
+                                                dev), 20, 3)]
     evolves = [check_evolve(me, (16, 512, 512, 3, 3), torch.bfloat16, 10,
                             dev, 10),
                check_evolve(me, (16, 10), torch.bfloat16, 11, dev, 50),
@@ -1313,6 +1717,8 @@ def main() -> int:
     # step diverges to NaN within a round, in the JAX reference as well
     # (ROADMAP queue 3)
     fl_base = dataclasses.replace(fl, lr=BASELINE_LR)
+    # every run goes through the default fabric (FLConfig.comms =
+    # CommsConfig(): full topology, uniform links, no events)
     paths = [run_path(name, cfg, fl if name.startswith("pfeddst")
                       else fl_base, data, rounds, dev, run_experiment, ops,
                       n_leaves)
@@ -1320,6 +1726,15 @@ def main() -> int:
                                   ("dfedpgp", 3), ("dispfl", 3),
                                   ("dfedavgm", 2), ("fedavg", 2),
                                   ("fedper", 2), ("fedbabu", 2))]
+    # the default fabric is inert: pfeddst selects in every round as the
+    # fabric-less path does (both runs with cuDNN deterministic)
+    inert = [pfeddst_masks(cfg, dataclasses.replace(fl, comms=comms), data,
+                           dev, run_experiment, ops, 3)[0]
+             for comms in (None, fl.comms)]
+    compare_masks("default fabric against none", *inert)
+    print("default fabric: pfeddst selections equal the fabric-less ones "
+          f"in all {len(inert[0])} rounds (edges "
+          f"{[int(m.sum()) for m in inert[0]]})", flush=True)
     launches = {PATH_KERNELS[r["name"]]: r["launches"][PATH_KERNELS[r["name"]]]
                 for r in paths if r["name"] in PATH_KERNELS}
     evolve_leaves = next(r["launches"]["mask_evolve_leaves"] for r in paths
@@ -1392,8 +1807,16 @@ def main() -> int:
     walls["5 profile"] = time.perf_counter() - t_phase
     print(f"phase 5 wall: {walls['5 profile']:.1f} s", flush=True)
 
+    t_phase = time.perf_counter()
+    # ---- 6. the comms fabric -------------------------------------------------
+    launches_fabric = fabric_phase(cfg, fl, data, dev, run_experiment, ops,
+                                   ref)
+    walls["6 fabric"] = time.perf_counter() - t_phase
+    print(f"phase 6 wall: {walls['6 fabric']:.1f} s", flush=True)
+
     # ---- output -------------------------------------------------------------
-    k_main = main_sel[0]
+    k_main = main_sel[-1]
+    assert k_main["matrix_cost"] and k_main["cand"]
     g_main = grams[0]
     # the route each dtype's flash cases reached (route_launches)
     flash_routes = {}
@@ -1406,6 +1829,7 @@ def main() -> int:
         {"name": "select_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/select_topk.cu",
          "replaces": "src/repro/kernels/select_score.py:152",
+         "inputs": "M=16, (M, M) cost matrix and candidate mask",
          "launches": launches["select_topk"],
          "max_abs_err": max(r["max_abs_err"] for r in main_sel),
          "ms": k_main["ms"], "device_ms": k_main["device_ms"],
@@ -1459,6 +1883,10 @@ def main() -> int:
          "bound_ms": wkvs[0]["bound_ms"], "bound_by": wkvs[0]["bound_by"],
          "library_ms": None},
     ]
+    for entry in kernels:
+        entry["launches_fabric"] = {run: counts[entry["name"]]
+                                    for run, counts in
+                                    launches_fabric.items()}
     print("round walls (s):", json.dumps(
         {r["name"]: r["round_walls_s"] for r in paths}), flush=True)
     print("serving (s, tokens/s):", json.dumps(

@@ -3,7 +3,7 @@ two LLMs whose serving path is ported (qwen2-1.5b, rwkv6-7b)."""
 from __future__ import annotations
 
 from repro_torch.configs import qwen2_1_5b, resnet18_cifar, rwkv6_7b
-from repro_torch.configs.base import FLConfig, ModelConfig
+from repro_torch.configs.base import CommsConfig, FLConfig, ModelConfig
 
 ARCH_REGISTRY: dict[str, ModelConfig] = {
     "qwen2-1.5b": qwen2_1_5b.CONFIG,
@@ -20,4 +20,4 @@ def get_config(name: str) -> ModelConfig:
     return ARCH_REGISTRY[name]
 
 
-__all__ = ["ARCH_REGISTRY", "FLConfig", "ModelConfig", "get_config"]
+__all__ = ["ARCH_REGISTRY", "CommsConfig", "FLConfig", "ModelConfig", "get_config"]

@@ -4,16 +4,17 @@
 `ModelConfig` keeps the CNN family (the paper's ResNet-18/CIFAR) and the
 dense and ssm (RWKV6) LLM families that the serving path runs. The
 reference's MoE, MLA, hybrid, audio and vlm fields are not ported (ROADMAP
-queue 1 item 12). `FLConfig` keeps the Section III protocol; the
-reference's network fabric, device-heterogeneity and open-world fields are
-not ported yet (ROADMAP queue 1 items 8–11), so a config cannot ask for
-them.
+queue 1 item 12). `FLConfig` keeps the Section III protocol and the
+network fabric (`CommsConfig`, `repro_torch.comms`). Its
+`device_profile` and `threat` fields exist so that a config can ask for
+them, but `fl.strategies.make_strategy` refuses them: the semi-async and
+open-world layers are not ported yet (ROADMAP queue 1 items 9 and 11).
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, field
+from typing import Any, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -84,6 +85,62 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class CommsConfig:
+    """Network model of the decentralized fabric (`repro_torch.comms`).
+
+    The default — fully-connected topology, uniform links, no events —
+    is the paper's §III-A world of equal communication cost between all
+    clients: the Eq. 9 `c` matrix is the scalar `FLConfig.comm_cost` off
+    the diagonal and every peer is a candidate.
+    """
+    # --- topology -----------------------------------------------------------
+    topology: str = "full"      # full | ring | torus | erdos_renyi |
+                                # small_world | hier_ring | geo_cell |
+                                # dynamic
+    ring_hops: int = 1          # ring: connect to ±1..hops neighbours
+    er_p: float = 0.3           # erdos_renyi: iid edge probability
+    ws_k: int = 4               # small_world: base lattice degree (even)
+    ws_beta: float = 0.2        # small_world: rewiring probability
+    hier_cluster: int = 16      # hier_ring: clients per cluster ring
+    geo_cells: int = 4          # geo_cell: grid cells per unit-square side
+    dyn_degree: int = 4         # dynamic: score-driven out-degree
+    dyn_explore: int = 1        # dynamic: extra random exploration edges
+    graph_seed: int = 0         # static graph sampling seed
+    sparse: bool = False        # the packed CSR SparseFabric (static
+                                # topologies, p2p accounting only)
+
+    # --- link model ---------------------------------------------------------
+    link_model: str = "uniform"     # uniform | hetero | geometric
+    bandwidth_mbps: float = 100.0   # mean link bandwidth
+    latency_ms: float = 10.0        # mean one-way link latency
+    hetero_spread: float = 4.0      # hetero: max/min client-tier ratio
+    energy_nj_per_byte: float = 5.0 # radio energy per byte on the mean link
+
+    # --- network events -----------------------------------------------------
+    p_link_drop: float = 0.0    # per-round iid symmetric edge dropout
+    availability: float = 1.0   # per-round per-client online probability
+    p_stale: float = 0.0        # prob. a client's update misses the deadline
+    max_staleness: int = 3      # staleness horizon (rounds)
+    stale_mode: str = "drop"    # "drop": a stale peer loses its candidate
+                                # column; "serve": it stays selectable
+                                # (versioned strategies, not ported)
+
+    # --- payload ------------------------------------------------------------
+    payload_bits: int = 0       # quantized bits/param (0 → native dtype)
+    msg_overhead_bytes: int = 0 # fixed per-message framing overhead
+
+    def __post_init__(self):
+        if self.stale_mode not in ("drop", "serve"):
+            raise ValueError(
+                f"stale_mode must be 'drop' or 'serve', "
+                f"got {self.stale_mode!r}")
+        if self.sparse and self.topology == "dynamic":
+            raise ValueError(
+                "sparse=True requires a static topology (the dynamic "
+                "graph is resampled every round and has no CSR)")
+
+
+@dataclass(frozen=True)
 class FLConfig:
     num_clients: int = 100
     peers_per_round: int = 10          # |M_i|
@@ -109,3 +166,9 @@ class FLConfig:
     dispfl_sparsity: float = 0.5       # personal-mask sparsity
     dispfl_regrow: float = 0.02        # RigL-style random regrow rate/round
     classes_per_client: int = 2        # pathological partition
+    # network model; None → the scalar-cost path (no candidate masking,
+    # no byte accounting)
+    comms: Optional[CommsConfig] = field(default_factory=CommsConfig)
+    # not ported: make_strategy refuses any value but None
+    device_profile: Optional[Any] = None   # ROADMAP queue 1 item 9
+    threat: Optional[Any] = None           # ROADMAP queue 1 item 11

@@ -13,11 +13,13 @@ Eq. 6 probes run only for the sampled rows; inactive rows keep their
 cached `loss_matrix` entries. Training runs only the sampled rows, one
 client at a time, and scatters them back.
 
-Not ported yet: the comms fabric's candidate masks, per-link costs and
-packed sparse-neighbour scoring (ROADMAP queue 1 item 8), the
-semi-async `hetero` variant (item 9, asking for it raises) and the
-threat/defense hooks (item 11). Without a fabric the Eq. 9 cost is the
-scalar `fl.comm_cost` and every peer is a candidate.
+The comms fabric reaches the round through the engine's context: the
+candidate mask `ctx.cand` restricts every selection mode (and the fused
+`select_topk` kernel), the Eq. 9 cost is `ctx.cost` (else the scalar
+`fl.comm_cost`), and a packed fabric's neighbour view `ctx.nbr` routes
+the top-k scoring through `score_topk_sparse`. Not ported yet: the
+semi-async `hetero` variant (ROADMAP queue 1 item 9, asking for it
+raises) and the threat/defense hooks (item 11).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from repro_torch.core.scoring import (
     loss_disparity_rows,
     recency_scores,
     score_topk,
+    score_topk_sparse,
     selected_components,
 )
 from repro_torch.core.selection import (
@@ -86,16 +89,29 @@ def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
                                        probe)                    # (n, M)
         s_l = state.loss_matrix.clone()
         s_l[ctx.sampled_idx] = s_l_rows
-        cost = fl.comm_cost
+        cost = fl.comm_cost if ctx.cost is None else ctx.cost
         flat = flatten_headers(state.header)
+        k = min(fl.peers_per_round, m - 1)
         fused = (use_score_kernel and m > 1 and fl.peers_per_round > 0
                  and fl.selection not in ("threshold", "random"))
+        # a packed fabric's neighbour view: top-k over each row's D
+        # neighbours, O(M·D·P), whatever use_score_kernel says
+        packed = (ctx.nbr is not None and m > 1 and fl.peers_per_round > 0
+                  and fl.selection not in ("threshold", "random"))
+        fused = fused or packed   # both feed the metrics a top-k channel
         if fused:
-            # ---- 1b/2. fused Eq. 7–9 + top-k --------------------------------
-            vals, idx, sd_stats = score_topk(
-                flat, state.last_selected, s_l, state.round,
-                alpha=fl.alpha, lam=fl.recency_lambda, comm_cost=cost,
-                k=min(fl.peers_per_round, m - 1))
+            # ---- 1b/2. Eq. 7–9 + top-k: packed, or the fused kernel --------
+            if packed:
+                vals, idx, sd_stats = score_topk_sparse(
+                    flat, state.last_selected, s_l, state.round,
+                    nbr_idx=ctx.nbr["idx"], nbr_valid=ctx.nbr["valid"],
+                    alpha=fl.alpha, lam=fl.recency_lambda,
+                    comm_cost=ctx.nbr["cost"], k=k)
+            else:
+                vals, idx, sd_stats = score_topk(
+                    flat, state.last_selected, s_l, state.round,
+                    alpha=fl.alpha, lam=fl.recency_lambda, comm_cost=cost,
+                    k=k, candidate_mask=ctx.cand)
             mask = topk_to_mask(idx, vals, m)
             ctx.aux.update(s_l=s_l, s_l_rows=s_l_rows, topk_vals=vals,
                            topk_idx=idx, sd_stats=sd_stats)
@@ -107,14 +123,17 @@ def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
                                      comm_cost=cost)
             # ---- 2. selection --------------------------------------------
             if fl.selection == "threshold":
-                mask = select_peers(scores, threshold=fl.score_threshold)
+                mask = select_peers(scores, threshold=fl.score_threshold,
+                                    candidate_mask=ctx.cand)
             elif fl.selection == "random":
                 rand = ctx.uniform("rand", (m, m), flat.device)
                 eye = torch.eye(m, dtype=torch.bool, device=flat.device)
                 mask = select_peers(torch.where(eye, -1.0, rand),
-                                    k=fl.peers_per_round)
+                                    k=fl.peers_per_round,
+                                    candidate_mask=ctx.cand)
             else:
-                mask = select_peers(scores, k=fl.peers_per_round)
+                mask = select_peers(scores, k=fl.peers_per_round,
+                                    candidate_mask=ctx.cand)
             ctx.aux.update(s_l=s_l, s_l_rows=s_l_rows, s_d=s_d,
                            scores=scores)
         mask = mask & ctx.active[:, None]

@@ -12,9 +12,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.selection import NEG
 from repro_torch.kernels import ops
 from repro_torch.kernels.peer_score import gram_to_cosine
-from repro_torch.kernels.ref import inverse_norms, recency
+from repro_torch.kernels.ref import inverse_norms, recency, stable_topk
 from repro_torch.models import model as model_mod
 from repro_torch.utils.pytree import leaf_order
 
@@ -84,6 +85,71 @@ def score_topk(headers_flat, last_selected, loss_matrix, round_t, *,
     return ops.select_topk(headers_flat, last_selected, loss_matrix, round_t,
                            comm_cost, candidate_mask, k=k, alpha=float(alpha),
                            lam=float(lam))
+
+
+def _gather_nbr_cols(arr, nbr_idx, m: int, what: str):
+    """(M, M) dense → (M, D) neighbour columns; (M, D) passes through.
+    D == M reads as dense (a packed fabric has D < M: no self-loops)."""
+    d = nbr_idx.shape[1]
+    if tuple(arr.shape) == (m, m):
+        return torch.gather(arr, 1, nbr_idx.long())
+    if tuple(arr.shape) == (m, d):
+        return arr
+    raise ValueError(f"{what} must be ({m}, {m}) dense or ({m}, {d}) "
+                     f"neighbour columns, got shape {tuple(arr.shape)}")
+
+
+def score_topk_sparse(headers_flat, last_selected, loss_matrix, round_t, *,
+                      nbr_idx, nbr_valid, alpha: float, lam: float,
+                      comm_cost, k: int):
+    """Eq. 7–9 scoring + top-k over packed neighbour lists, O(M·D·P) —
+    the packed fabric's twin of `score_topk` (plain PyTorch, as the
+    reference's is plain jnp).
+
+    Client i scores only its D neighbours `nbr_idx[i]` (ascending ids,
+    padding arbitrary), `nbr_valid[i]` marking the slots live this round
+    (`SparseFabric.round_slots`). last_selected / loss_matrix / comm_cost
+    take the dense (M, M) form (gathered here) or (M, D) neighbour columns
+    (e.g. `SparseFabric.slot_cost`); comm_cost may be a scalar. The
+    cosine is one row dot per slot, never an (M, D, P) gather, so its
+    values equal the reference's to fp tolerance, not bitwise.
+
+    → (values (M, k), indices (M, k) int32 global ids, s_d_stats (M, 2)).
+    Invalid slots score exactly NEG; a pick at that floor names the row
+    itself (never the padding's fill id, which could collide with a real
+    pick in `topk_to_mask`), and k > D is padded with (NEG, row) entries.
+    Ties go to the lowest slot, i.e. the lowest id. s_d_stats[:, 0] sums
+    the cosine over the valid neighbourhood plus the diagonal (the dense
+    stats sum all M columns); s_d_stats[:, 1] is the diagonal."""
+    m = headers_flat.shape[0]
+    idx = nbr_idx.long()
+    d = idx.shape[1]
+    xf = headers_flat.float()
+    sq = (xf * xf).sum(dim=1)
+    inv = 1.0 / (sq.sqrt() + 1e-12)
+    raw = torch.stack([(xf * xf[idx[:, j]]).sum(dim=1) for j in range(d)],
+                      dim=1)
+    cos = (raw * inv[:, None] * inv[idx]).clamp(-1.0, 1.0)
+    last = _gather_nbr_cols(last_selected, idx, m, "last_selected")
+    s_p = recency(last, round_t, lam)
+    s_l = _gather_nbr_cols(loss_matrix, idx, m, "loss_matrix").float()
+    c = torch.as_tensor(comm_cost, dtype=torch.float32, device=xf.device)
+    c = c.expand(m, d) if c.dim() == 0 else \
+        _gather_nbr_cols(c, idx, m, "comm_cost")
+    s = s_p * (alpha * s_l - cos + c)
+    rows = torch.arange(m, device=xf.device)[:, None]
+    ok = nbr_valid.bool() & (idx != rows)
+    s = torch.where(ok, s, NEG)
+    kk = min(k, d)
+    vals, pos = stable_topk(s, kk)
+    sel = torch.where(vals > NEG / 2, torch.gather(idx, 1, pos),
+                      rows.expand(m, kk))
+    if kk < k:
+        vals = torch.cat([vals, vals.new_full((m, k - kk), NEG)], dim=1)
+        sel = torch.cat([sel, rows.expand(m, k - kk)], dim=1)
+    diag = (sq * inv * inv).clamp(-1.0, 1.0)
+    nbr_sum = torch.where(ok, cos, 0.0).sum(dim=1) + diag
+    return vals, sel.to(torch.int32), torch.stack([nbr_sum, diag], dim=1)
 
 
 # ---------------------------------------------------------------------------

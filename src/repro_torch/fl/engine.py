@@ -1,11 +1,14 @@
-"""Round engine for decentralized FL — the synchronous, fabric-less part
-of reference `repro.fl.engine`.
+"""Round engine for decentralized FL — the synchronous part of reference
+`repro.fl.engine`.
 
 A round is an ordered tuple of stages `(state, ctx) -> state` run by
-`run_round`, which owns participation (client sampling), the named
-random streams and the metrics contract (`active`, `comm_edges`). The
-stage library below (plans, training, server averaging, gossip mixing)
-is what the baselines of `fl.strategies` compose.
+`run_round`, which owns participation (client sampling × the comms
+fabric's availability), the named random streams, the network hooks
+(candidate mask, Eq. 9 cost matrix, the packed neighbour view of a
+`SparseFabric`) and the metrics contract (`active`, `stale`,
+`comm_edges`). The stage library below (plans, training, server
+averaging, gossip mixing) is what the baselines of `fl.strategies`
+compose.
 
 Randomness: `named_streams` turns a round key (a tuple of ints, e.g.
 `(seed, round)`) into one CPU `torch.Generator` per named stream, in the
@@ -21,10 +24,16 @@ keyed by stream name, replaces that stream's choices —
     "train"  (n_steps, n, B) baseline local-training batch indices
     "nbr"    (M, M)          the gossip plans' uniform plane
     "grow"   {leaf: bool}    dispfl's regrow planes, by the port's leaf name
+    "net"    (cand (M, M), available (M,), stale (M,)) the fabric's round
+             masks; on a packed fabric (slot_mask (M, D), available,
+             stale)
 
 — through which the parity tests inject the reference's draws. The
 regrow planes are as large as the model, so without injection they are
-drawn on the data's device (`device_generator`), not on the CPU.
+drawn on the data's device (`device_generator`), not on the CPU. The
+fabric draws from network generators of its own (`net_streams`, keyed
+apart from the strategy's streams), so adding a fabric changes no other
+stream's draws.
 """
 from __future__ import annotations
 
@@ -55,6 +64,10 @@ from repro_torch.kernels.gossip_mix import (
 from repro_torch.models.split import merge_params, split_params
 from repro_torch.utils.pytree import tree_map
 
+# keys the network generators apart from the strategy's streams (whose
+# positions 0, 1, ... end each stream's seed): the reference's net_key salt
+NET_SALT = 0x636F6D
+
 
 def named_streams(key, streams: tuple) -> dict:
     """One CPU torch.Generator per stream name, seeded from the round key
@@ -64,6 +77,14 @@ def named_streams(key, streams: tuple) -> dict:
         seed = np.random.SeedSequence([*key, i]).generate_state(1, np.uint64)
         out[name] = torch.Generator().manual_seed(int(seed[0]))
     return out
+
+
+def net_streams(key) -> dict:
+    """The round's network generators (`comms.fabric.NET_STREAMS`), keyed
+    by the round key and NET_SALT, independent of every strategy stream."""
+    from repro_torch.comms.fabric import NET_STREAMS
+
+    return named_streams((*key, NET_SALT), NET_STREAMS)
 
 
 def device_generator(generator: torch.Generator, device) -> torch.Generator:
@@ -174,14 +195,19 @@ def train_sampled(ctx, step, trained, frozen, opt_state, stream: str,
     return new, opt, losses
 
 
-def gossip_edges(uniform, k: int, *, directed: bool):
+def gossip_edges(uniform, k: int, *, directed: bool, cand=None):
     """Random k-neighbour selection mask (no self) from an (M, M) uniform
-    plane; undirected plans are symmetrized (`mask | mask.T`)."""
+    plane, restricted to the fabric's candidates `cand` where given.
+    Undirected plans are symmetrized (`mask | mask.T`) and cut to `cand`
+    again: it is not symmetric under staleness (a stale peer loses its
+    column only), and `.T` must not bring back an edge the network
+    excluded."""
     m = uniform.shape[0]
     no_self = ~torch.eye(m, dtype=torch.bool, device=uniform.device)
-    mask = select_peers(uniform, k=k, candidate_mask=no_self)
+    cand = no_self if cand is None else cand & no_self
+    mask = select_peers(uniform, k=k, candidate_mask=cand)
     if not directed:
-        mask = (mask | mask.T) & no_self
+        mask = (mask | mask.T) & cand
     return mask
 
 
@@ -207,8 +233,24 @@ class RoundContext:
     data         stacked client dataset dict — (M, N, ...) tensors
     streams      named CPU torch.Generators (the strategy's stream layout)
     draws        injected draws by stream name (see module docstring)
-    active       (M,) bool — the clients sampled this round
+    active       (M,) bool — the clients sampled and online this round
     sampled_idx  (n,) int64 sampled client ids
+    cand         (M, M) bool reachable peers from the comms fabric (None
+                 without a network model)
+    cand_bounded True only when `cand` is cut from a fabric's static graph,
+                 the one case a build-time `topology_degree_bound` covers
+                 (events only remove edges); a caller's mask or a dynamic
+                 fabric leaves it False, so `stage_plan_gossip` never packs
+                 against a bound the round's mask does not obey
+                 (`weights_to_neighbors` would drop the overflow silently)
+    nbr          the packed neighbour view of a SparseFabric round (None on
+                 the dense path): {"idx": (M, D) int32 ascending ids,
+                 "valid": (M, D) bool slots live this round, "cost": (M, D)
+                 per-slot Eq. 9 c}; `score_select` then scores through
+                 `score_topk_sparse`
+    cost         (M, M) Eq. 9 c matrix from the fabric (None → the scalar
+                 FLConfig.comm_cost)
+    stale        (M,) int32 per-peer staleness lag (zeros without a fabric)
     plan         the ExchangePlan (set by the plan stage)
     aux          stage-to-stage scratch values
     metrics      round metrics
@@ -219,6 +261,11 @@ class RoundContext:
     active: Any
     sampled_idx: Any
     draws: dict = field(default_factory=dict)
+    cand: Any = None
+    cand_bounded: bool = False
+    nbr: Any = None
+    cost: Any = None
+    stale: Any = None
     plan: Optional[ExchangePlan] = None
     aux: dict = field(default_factory=dict)
     metrics: dict = field(default_factory=dict)
@@ -243,28 +290,91 @@ class RoundContext:
         return u.to(device, torch.float32)
 
 
+def _on(x, device, dtype=None):
+    """An injected draw (numpy or tensor) as a tensor on `device`."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x))
+    return x.to(device, dtype)
+
+
 def run_round(stages, state, data, key, *, m: int, ratio: float,
-              key_streams: tuple, draws: dict | None = None):
+              key_streams: tuple, draws: dict | None = None, fabric=None,
+              affinity=None, candidate_mask=None, comm_cost=None,
+              available=None):
     """Execute one round's stages under the engine's participate step
-    (the "act" stream samples the participants).
+    (the "act" stream samples the participants; a client trains iff it
+    is sampled and online).
 
     key: the round key (tuple of ints) the named streams derive from;
-    draws: optional injected draws by stream name."""
+    draws: optional injected draws by stream name. fabric: a CommsFabric
+    or SparseFabric, which draws the round's candidates, availability and
+    staleness from `net_streams(key)` (or takes draws["net"]) and sets the
+    Eq. 9 cost matrix; affinity: the dynamic topology's (M, M) steering
+    matrix. candidate_mask / comm_cost / available are the direct network
+    hooks of fabric-less callers; a fabric overrides the first two."""
     device = next(iter(data.values())).device
     streams = named_streams(key, key_streams)
     draws = dict(draws or {})
+    cand = None if candidate_mask is None else _on(candidate_mask, device,
+                                                  torch.bool)
+    cost = comm_cost
+    cand_bounded, nbr = False, None
+    stale = torch.zeros(m, dtype=torch.int32, device=device)
+    if available is not None:
+        available = _on(available, device, torch.bool)
+    if fabric is not None:
+        packed = hasattr(fabric, "round_slots")
+        net = draws.get("net")
+        if net is not None:
+            first, avail, stale = (_on(net[0], device, torch.bool),
+                                   _on(net[1], device, torch.bool),
+                                   _on(net[2], device, torch.int32))
+        elif packed:
+            first, avail, stale = fabric.round_slots(net_streams(key))
+        else:
+            first, avail, stale = fabric.round_masks(net_streams(key),
+                                                     affinity=affinity)
+        if packed:
+            nbr = {"idx": fabric.nbr_idx, "valid": first,
+                   "cost": fabric.slot_cost}
+            cand = fabric.cand_dense(first)
+        else:
+            cand = first
+        cost = fabric.cost
+        cand_bounded = not fabric.is_dynamic
+        available = avail if available is None else available & avail
     idx, active = sample_participants(streams["act"], m, ratio,
                                       idx=draws.get("act"), device=device)
+    if available is not None:
+        active = active & available
     ctx = RoundContext(m=m, data=data, streams=streams, draws=draws,
-                       active=active, sampled_idx=idx)
+                       active=active, sampled_idx=idx, cand=cand,
+                       cand_bounded=cand_bounded, nbr=nbr, cost=cost,
+                       stale=stale)
     for stage in stages:
         state = stage(state, ctx)
     metrics = ctx.metrics
     metrics.setdefault("active", ctx.active)
+    metrics.setdefault("stale", stale)
     if (ctx.plan is not None and ctx.plan.pattern == "p2p"
             and ctx.plan.edges is not None):
         metrics.setdefault("comm_edges", ctx.plan.edges)
     return state, metrics
+
+
+def gather_neighbors(tree, nbr_idx, m: int):
+    """Per-neighbourhood view of a leading-M client tree: every (M, ...)
+    leaf becomes (M, D, ...), row i holding `leaf[nbr_idx[i]]` (padding
+    slots hold whatever client the fill id names — mask with the round's
+    valid slots before reducing). Other leaves pass through."""
+    idx = nbr_idx.long()
+
+    def g(x):
+        if isinstance(x, torch.Tensor) and x.dim() >= 1 and x.shape[0] == m:
+            return x[idx]
+        return x
+
+    return tree_map(g, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -282,9 +392,14 @@ def stage_plan_star():
     return plan_star
 
 
-def stage_plan_gossip(fl, *, directed: bool, stream: str = "nbr"):
-    """Random k-neighbour gossip plan; only active clients pull. When the
-    plan's degree bound D is at most M/2 (directed plans: k + 1) and the
+def stage_plan_gossip(fl, *, directed: bool, stream: str = "nbr",
+                      topo_degree: int | None = None):
+    """Random k-neighbour gossip plan restricted to the round's candidates;
+    only active clients pull. When the plan's degree bound D is at most
+    M/2 — directed plans: k + 1; undirected `mask | mask.T` plans: the
+    static topology's degree + 1 (`topo_degree`, from
+    `comms.topology.topology_degree_bound`), used only when the round's
+    candidates are cut from that graph (`ctx.cand_bounded`) — and the
     device packs plans (`kernels.ops.packs_gossip_plans`: always on CUDA),
     the weights are also packed into neighbour lists, so `stage_mix` runs
     the O(M·D·F) `gossip_mix` kernel instead of the dense (M, M) mix."""
@@ -292,12 +407,14 @@ def stage_plan_gossip(fl, *, directed: bool, stream: str = "nbr"):
     def plan_gossip(state, ctx):
         device = ctx.active.device
         uniform = ctx.uniform(stream, (ctx.m, ctx.m), device)
-        nbr = gossip_edges(uniform, fl.peers_per_round, directed=directed)
+        nbr = gossip_edges(uniform, fl.peers_per_round, directed=directed,
+                           cand=ctx.cand)
         nbr = nbr & ctx.active[:, None]
         weights = selection_to_weights(nbr, include_self=True)
         nbr_idx = nbr_w = None
+        topo = topo_degree if ctx.cand_bounded else None
         d_max = gossip_degree_bound(fl.peers_per_round, ctx.m,
-                                    directed=directed)
+                                    directed=directed, topo_degree=topo)
         if kernel_ops.packs_gossip_plans(ctx.m, device) \
                 and 2 * d_max <= ctx.m:
             nbr_idx, nbr_w = weights_to_neighbors(weights, d_max)

@@ -1,12 +1,19 @@
 """Population FL simulator — round loop + personalized evaluation,
-reference `repro.fl.simulator` (per-round driver, no trace, no fabric).
+reference `repro.fl.simulator` (a per-round loop, no trace).
 
 Personalized test accuracy = mean over clients of client i's model on
 client i's OWN test split (the paper's primary metric); FedBABU's
 evaluation first fine-tunes a throwaway header copy per client
-(`_finetune_heads`). Without a comms
-fabric the communication and device-heterogeneity fields of `History`
-are zeros, as the reference reports them with `FLConfig(comms=None)`.
+(`_finetune_heads`).
+
+When the strategy carries a comms fabric (`FLConfig.comms`, the default)
+every round's exchange is priced on the simulated network by
+`fabric.account_round` after the round's timed wall: `History` gets
+per-round bytes, simulated network time and staleness, and cumulative
+bytes, network time and energy at each eval point. `FLConfig(comms=None)`
+is the paper's costless scalar world: those fields stay zero. Only
+parameter traffic is priced. The device-heterogeneity fields stay zero
+(the semi-async layer is not ported).
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.comms.transport import payload_bytes_per_client
 from repro_torch.core.client_state import stack_trees
 from repro_torch.core.partial_freeze import make_phase_steps
 from repro_torch.data.pipeline import as_index_tensor
@@ -114,6 +122,44 @@ class History:
                       for name, vals in self.extra.items()},
         }
 
+    def bytes_to_target(self, target: float):
+        """Cumulative comm bytes when `target` accuracy is first reached
+        (None if never)."""
+        for a, b in zip(self.accuracy, self.comm_bytes):
+            if a >= target:
+                return b
+        return None
+
+
+def _stale_summary(stale) -> tuple:
+    """(mean lag over the stale clients, max lag); 0s when nobody is
+    stale. The mean leaves the fresh clients' zeros out, so it tracks the
+    lag distribution, not p_stale."""
+    if stale is None:
+        return 0.0, 0
+    arr = stale.cpu().numpy() if isinstance(stale, torch.Tensor) \
+        else np.asarray(stale)
+    lagging = arr[arr > 0]
+    if lagging.size == 0:
+        return 0.0, 0
+    return float(lagging.mean()), int(arr.max())
+
+
+def _message_bytes(strat, cfg, fl, state) -> int:
+    """Wire size of one message of `strat` (0 without a fabric): the
+    per-client bytes of its payload tree (the model, or the extractor),
+    quantization-aware and with the per-message framing of `fl.comms`,
+    times the strategy's payload fraction."""
+    if strat.fabric is None:
+        return 0
+    params = strat.params_for_eval(state)
+    tree = params if strat.payload_kind == "model" \
+        else split_params(cfg, params)[0]
+    payload = payload_bytes_per_client(
+        tree, fl.num_clients, bits=fl.comms.payload_bits,
+        overhead_bytes=fl.comms.msg_overhead_bytes)
+    return int(round(payload * strat.payload_fraction))
+
 
 def scalar_metrics(metrics: dict) -> dict:
     """Every 0-d entry of a round's metrics as {name: float}."""
@@ -136,7 +182,12 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
 
     on_round: optional `(round_index, metrics) -> None`, called after
     each round with the round's metrics dict (arrays included, e.g.
-    `select_mask`), outside the round's wall clock."""
+    `select_mask`), outside the round's wall clock.
+
+    The network comes from `fl.comms` (a `CommsConfig`: topology,
+    ring_hops, hier_cluster, ..., link_model, the events p_link_drop,
+    availability, p_stale, and sparse=True for the packed fabric; None
+    for the costless scalar path)."""
     device = resolve_device(device)
     strat = make_strategy(strategy_name, cfg, fl, steps_per_epoch,
                           device=device)
@@ -144,8 +195,10 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
     train_data = {"images": data["train_x"], "labels": data["train_y"]}
     state = strat.init(seed)
 
+    payload = _message_bytes(strat, cfg, fl, state)
     hist = History()
     steady_s = 0.0
+    cum_bytes, cum_net_s, cum_energy = 0, 0.0, 0.0
     t_start = time.time()
     for r in range(num_rounds):
         t0 = time.perf_counter()
@@ -156,9 +209,23 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
             hist.compile_s = wall
         else:
             steady_s += wall
-        for lst, value in ((hist.round_bytes, 0), (hist.round_net_time_s, 0.0),
-                           (hist.round_stale_lag, 0.0),
-                           (hist.round_stale_max, 0),
+        # the accounting reads the round's edges on the host: after the
+        # timed wall, never inside it
+        if strat.fabric is not None:
+            stats = strat.fabric.account_round(strat.comm_pattern, metrics,
+                                               payload, name=strat.name)
+            round_bytes, round_net_s = stats.total_bytes, stats.sim_time_s
+            round_energy = stats.energy_j
+        else:
+            round_bytes, round_net_s, round_energy = 0, 0.0, 0.0
+        cum_bytes += round_bytes
+        cum_net_s += round_net_s
+        cum_energy += round_energy
+        mean_lag, max_lag = _stale_summary(metrics.get("stale"))
+        for lst, value in ((hist.round_bytes, round_bytes),
+                           (hist.round_net_time_s, round_net_s),
+                           (hist.round_stale_lag, mean_lag),
+                           (hist.round_stale_max, max_lag),
                            (hist.round_device_wall_s, 0.0),
                            (hist.round_straggler_wall_s, 0.0),
                            (hist.round_eff_lag, 0.0)):
@@ -184,11 +251,13 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
             hist.accuracy.append(float(acc))
             hist.train_loss.append(tl)
             hist.wall_s.append(steady_s)
-            for lst in (hist.comm_bytes, hist.net_time_s, hist.energy_j,
-                        hist.device_time_s):
-                lst.append(0)
+            hist.comm_bytes.append(cum_bytes)
+            hist.net_time_s.append(cum_net_s)
+            hist.energy_j.append(cum_energy)
+            hist.device_time_s.append(0.0)
             if verbose:
                 print(f"[{strategy_name:16s}] round {r + 1:4d} "
                       f"acc={float(acc):.4f} loss={tl:.4f} "
+                      f"comm={cum_bytes / 1e6:.2f}MB net={cum_net_s:.1f}s "
                       f"({time.time() - t_start:.0f}s)", flush=True)
     return hist

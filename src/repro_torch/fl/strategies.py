@@ -27,6 +27,13 @@ PFedDST (`core.rounds.make_pfeddst_stages`) over a PopulationState:
   pfeddst        the paper's method;
   pfeddst_random ablation, selection="random".
 The semi-async `pfeddst_async` is ROADMAP queue 1 item 9 and raises here.
+
+Every strategy carries the comms fabric of `fl.comms` (`Strategy.fabric`,
+on the strategy's device; None with `comms=None`): the engine composes
+its availability with the client sampling, cuts every plan to the
+round's candidates and echoes the plan into the metrics (`active`,
+`comm_edges` / `select_mask`), so `fabric.account_round` prices a round's
+bytes, simulated network time and energy with no per-strategy branch.
 """
 from __future__ import annotations
 
@@ -37,6 +44,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.comms.fabric import make_fabric
+from repro_torch.comms.topology import topology_degree_bound
 from repro_torch.core.client_state import init_population, stack_trees
 from repro_torch.core.partial_freeze import make_phase_steps
 from repro_torch.core.rounds import PFEDDST_STREAMS, make_pfeddst_stages
@@ -68,6 +77,8 @@ GOSSIP = ("dfedavgm", "dispfl", "dfedpgp")
 STRATEGIES = CENTRAL + GOSSIP + ("pfeddst", "pfeddst_random")
 
 NOT_PORTED = {"pfeddst_async": 9}
+# FLConfig fields of layers not ported yet, and their ROADMAP queue 1 item
+NOT_PORTED_FIELDS = {"device_profile": 9, "threat": 11}
 
 CENTRAL_STREAMS = ("act", "train")
 GOSSIP_STREAMS = ("act", "train", "nbr", "grow")
@@ -99,6 +110,8 @@ class Strategy:
     needs_head_finetune: bool = False
     comm_pattern: str = "p2p"         # "p2p" | "star" (client↔server)
     payload_kind: str = "extractor"   # "extractor" | "model" per message
+    payload_fraction: float = 1.0     # share of the payload sent (dispfl)
+    fabric: object = None             # comms fabric (None: scalar path)
     stages: tuple = ()                # the round's stages, in order
     key_streams: tuple = ()           # the round's stream layout
 
@@ -238,6 +251,10 @@ def stage_evolve_masks(fl, *, stream: str = "grow"):
 
 
 def _gossip_spec(cfg, fl, steps_per_epoch: int, kind: str, device):
+    # a static comms graph (ring, torus, ...) bounds every undirected
+    # plan's row degree, so the plan can be packed for the gossip_mix
+    # kernel (None without a fabric or under the dynamic topology)
+    topo_degree = topology_degree_bound(fl.comms, fl.num_clients)
     opt = _opt(fl)
     n_steps = fl.epochs_extractor * steps_per_epoch
 
@@ -257,13 +274,16 @@ def _gossip_spec(cfg, fl, steps_per_epoch: int, kind: str, device):
         return state
 
     share = "model" if kind == "dfedavgm" else "extractor"
-    stages = (stage_plan_gossip(fl, directed=(kind == "dfedpgp")),
+    stages = (stage_plan_gossip(fl, directed=(kind == "dfedpgp"),
+                                topo_degree=topo_degree),
               stage_train_full(cfg, fl, opt, n_steps),
               stage_mix(cfg, share=share))
     if kind == "dispfl":
         stages = (stage_apply_masks(),) + stages + (stage_evolve_masks(fl),)
     return init, stages + (stage_bump_round(),), GOSSIP_STREAMS, dict(
-        payload_kind=share)
+        payload_kind=share,
+        payload_fraction=(1.0 - fl.dispfl_sparsity if kind == "dispfl"
+                          else 1.0))
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +302,10 @@ def _pfeddst_spec(cfg, fl, steps_per_epoch: int, name: str, device):
         gen = torch.Generator(device=device).manual_seed(seed)
         return init_population(cfg, gen, fl.num_clients, opt, opt, device)
 
-    return init, stages, PFEDDST_STREAMS, {}
+    # a dynamic topology steers toward the peers the loss array l marked
+    # informative last round (Algorithm 1's context)
+    return init, stages, PFEDDST_STREAMS, dict(
+        affinity=lambda state: state.loss_matrix)
 
 
 # ---------------------------------------------------------------------------
@@ -291,28 +314,56 @@ def _pfeddst_spec(cfg, fl, steps_per_epoch: int, name: str, device):
 
 def make_strategy(name: str, cfg, fl, steps_per_epoch: int = 2, *,
                   device="cuda") -> Strategy:
-    """The strategy `name` on `device` (default CUDA; raises without it)."""
+    """The strategy `name` on `device` (default CUDA; raises without it),
+    with the comms fabric of `fl.comms` on the same device."""
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"strategy {name!r} is not ported yet (ROADMAP queue 1 item "
             f"{NOT_PORTED[name]})")
     if name not in STRATEGIES:
         raise KeyError(f"unknown strategy {name!r}; available: {STRATEGIES}")
+    for field, item in NOT_PORTED_FIELDS.items():
+        if getattr(fl, field) is not None:
+            raise NotImplementedError(
+                f"FLConfig.{field} is not ported yet (ROADMAP queue 1 item "
+                f"{item})")
+    if (fl.comms is not None and fl.comms.stale_mode == "serve"
+            and fl.comms.p_stale > 0):
+        # the reference warns and lets stale peers serve live parameters;
+        # only a versioned strategy (pfeddst_async) honours the lag
+        raise NotImplementedError(
+            f"CommsConfig(stale_mode='serve', p_stale={fl.comms.p_stale}) "
+            f"needs a versioned strategy; {name!r} is not one and "
+            "pfeddst_async is not ported yet (ROADMAP queue 1 item 9). Use "
+            "stale_mode='drop'")
     device = resolve_device(device)
     spec = (_central_spec if name in CENTRAL else
             _gossip_spec if name in GOSSIP else _pfeddst_spec)
     init, stages, streams, meta = spec(cfg, fl, steps_per_epoch, name,
                                        device)
+    affinity = meta.pop("affinity", None)
+    fabric = make_fabric(fl.comms, fl.num_clients, cost_scale=fl.comm_cost,
+                         device=device)
+    pattern = meta.get("comm_pattern", "p2p")
+    if hasattr(fabric, "round_slots") and pattern != "p2p":
+        raise ValueError(
+            f"CommsConfig(sparse=True) models peer-to-peer links only; "
+            f"strategy {name!r} uses comm_pattern={pattern!r}. Centralized "
+            "baselines need the dense fabric (sparse=False) for star "
+            "accounting.")
 
     def round_fn(state, data, key, draws=None):
         return run_round(stages, state, data, key, m=fl.num_clients,
                          ratio=fl.client_sample_ratio, key_streams=streams,
-                         draws=draws)
+                         draws=draws, fabric=fabric,
+                         affinity=None if affinity is None else affinity(
+                             state))
 
     return Strategy(name=name, init=init, round=round_fn,
                     params_for_eval=(_pfeddst_params if spec is _pfeddst_spec
                                      else _dict_params),
-                    stages=stages, key_streams=streams, **meta)
+                    fabric=fabric, stages=stages, key_streams=streams,
+                    **meta)
 
 
 def _dict_params(state):

@@ -45,23 +45,36 @@ def weights_to_neighbors(weights, d_max: int):
     return idx.to(torch.int32), w
 
 
-def gossip_degree_bound(k: int, m: int, *, directed: bool) -> int:
-    """Static row-degree bound of a k-peer gossip plan, self included:
-    k + 1 for a directed plan (each row pulls its own k picks); M for an
-    undirected `mask | mask.T` plan, whose in-degree random selection does
-    not bound (the reference's topology bound needs the comms fabric,
-    which is not ported)."""
-    d = k + 1 if directed else m
+def gossip_degree_bound(k: int, m: int, *, directed: bool,
+                        topo_degree: int | None = None) -> int:
+    """Static row-degree bound of a k-peer gossip plan, self included.
+
+    Directed: each row pulls its own k picks → k + 1 (at most the
+    topology's degree + 1 where a static graph bounds it). Undirected
+    `mask | mask.T` plans add every peer that picked the row, which
+    random selection bounds only by M − 1 — unless the communication
+    topology does: the plan is cut to the candidate mask, a subset of the
+    static adjacency (events only remove edges), so with a static graph of
+    max degree `topo_degree` (`comms.topology.topology_degree_bound`)
+    every row touches at most topo_degree peers and itself. Without a
+    topology bound the undirected layout is D = M (callers mix dense)."""
+    if directed:
+        d = k + 1 if topo_degree is None else min(k, topo_degree) + 1
+    elif topo_degree is not None:
+        d = topo_degree + 1
+    else:
+        d = m
     return max(1, min(d, m))
 
 
 def gossip_mix_plain(x, idx, w):
-    """x (M, F); idx/w (M, D) packed lists → (M, F) in x.dtype: the D
-    slots in ascending order, each a single-rounded f32 multiply-add."""
+    """x (M, F); idx/w (R, D) packed lists (R = M for a whole mix, or a
+    subset of its rows) → (R, F) in x.dtype: the D slots in ascending
+    order, each a single-rounded f32 multiply-add."""
     xf = x.float()
     wf = w.float()
     idx = idx.long()
-    acc = torch.zeros_like(xf)
+    acc = xf.new_zeros((idx.shape[0], xf.shape[1]))
     for d in range(idx.shape[1]):
         acc = fma_f32(wf[:, d:d + 1], xf[idx[:, d]], acc)
     return acc.to(x.dtype)

@@ -2,8 +2,9 @@
 
 These are the definitions of correctness the CUDA kernels are held to:
 `cosine_gram_ref` (Eq. 7), `select_score_ref` (dense masked Eq. 9),
-`select_topk_ref` (dense Eq. 9 then a stable top-k), `gossip_mix_ref`
-(dense sequential neighbour accumulation), `mask_evolve_ref`
+`select_score_nbr_ref` (its packed-neighbour columns), `select_topk_ref`
+(dense Eq. 9 then a stable top-k), `gossip_mix_ref` (dense sequential
+neighbour accumulation), `mask_evolve_ref`
 (partition threshold, then drop and regrow), `flash_attention_ref`
 (masked softmax attention) and `wkv_ref` (the per-token RWKV6
 recurrence).
@@ -60,6 +61,25 @@ def select_score_ref(x, last_selected, s_l, t, cost, candidate_mask=None,
     if candidate_mask is not None:
         s = torch.where(candidate_mask, s, NEG)
     return s, cos
+
+
+def select_score_nbr_ref(x, last_selected, s_l, t, cost, nbr_idx, nbr_valid,
+                         *, alpha: float, lam: float):
+    """(M, D) neighbour-column Eq. 9 scores gathered from the dense
+    oracle — the parity reference of `core.scoring.score_topk_sparse`.
+    The dense (M, M) scores are computed with the candidate mask set to
+    the scattered valid slots, then sampled at each packed position;
+    invalid slots (and a slot naming the row itself) read NEG. Small M
+    only (forms the dense matrix)."""
+    m = x.shape[0]
+    idx = nbr_idx.long()
+    rows = torch.arange(m, device=x.device)[:, None].expand_as(idx)
+    ok = nbr_valid.bool() & (idx != rows)
+    cand = torch.zeros((m, m), dtype=torch.bool, device=x.device)
+    cand[rows[ok], idx[ok]] = True
+    s, _ = select_score_ref(x, last_selected, s_l, t, cost, cand,
+                            alpha=alpha, lam=lam)
+    return torch.where(ok, torch.gather(s, 1, idx), NEG)
 
 
 def select_topk_ref(x, last_selected, s_l, t, cost, candidate_mask=None,

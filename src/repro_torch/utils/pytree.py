@@ -26,6 +26,26 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree) -> list:
+    """The tensors of a dict/list/tuple tree, in container order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_size(tree) -> int:
+    """Total number of scalar elements in a tree of tensors."""
+    return sum(leaf.numel() for leaf in tree_leaves(tree))
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes of a tree of tensors (numel × element size)."""
+    return sum(leaf.numel() * leaf.element_size()
+               for leaf in tree_leaves(tree))
+
+
 def _path_key(name: str):
     return tuple(int(p) if p.isdigit() else p for p in name.split("."))
 

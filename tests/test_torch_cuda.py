@@ -179,8 +179,27 @@ def _gossip_case(m, f, k, seed, dev, *, directed=True):
                                             (300, 2052, 10, True)])
 def test_gossip_mix_kernel_bitwise_equals_plain(cuda, m, f, k, directed):
     """Bitwise: both take the slots in order with one FMA each (F = 1001
-    takes the scalar path, the others the 16-byte one)."""
+    and 130 take the phased path, the others the 16-byte one)."""
     x, idx, w = _gossip_case(m, f, k, m + f, cuda, directed=directed)
+    got = ops.gossip_mix(x, idx, w)
+    want = ops.gossip_mix(x, idx, w, impl="plain")
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 2, 3, 5, 6, 7, 130, 1001, 1003, 5130])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_gossip_mix_kernel_phased_path_bitwise(cuda, f, offset):
+    """F not a multiple of 4, or x starting `offset` floats past a 16-byte
+    boundary: the phased path (a head and a tail one column at a time,
+    the body's source rows read by 16-, 8- or 4-byte loads as their phase
+    gives), bitwise against the plain version. offset 0 with F = 5130 is
+    the packed fabric's header; F = 1..3 leaves some rows no body."""
+    _, idx, w = _gossip_case(37, f, 3, f + offset, cuda, directed=False)
+    g = torch.Generator(device=cuda).manual_seed(offset)
+    x = torch.randn(37 * f + offset, generator=g, device=cuda)[offset:] \
+        .view(37, f)
+    assert x.data_ptr() % 16 == 4 * offset
     got = ops.gossip_mix(x, idx, w)
     want = ops.gossip_mix(x, idx, w, impl="plain")
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
@@ -541,3 +560,132 @@ def test_serving_kernels_count_launches_and_refuse_bad_input(cuda):
         wkv_chunked_cuda(r, r, r, r.half(), torch.zeros(2, 64, device=cuda))
     with pytest.raises(ValueError):
         wkv_chunked_cuda(r, r, r, r, torch.zeros(3, 64, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the comms fabric's inputs to the kernels
+# ---------------------------------------------------------------------------
+
+def _fabric(topo, m, dev, **kw):
+    from repro_torch.comms import make_fabric
+    from repro_torch.configs import CommsConfig
+
+    return make_fabric(CommsConfig(topology=topo, link_model="hetero",
+                                   p_link_drop=0.1, availability=0.9,
+                                   p_stale=0.1, **kw), m, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topo,m,k", [("ring", 16, 4), ("torus", 300, 4),
+                                      ("erdos_renyi", 1024, 10)])
+def test_select_topk_kernel_takes_fabric_candidates_and_costs(cuda, topo, m,
+                                                              k):
+    """A fabric round's candidate mask and hetero (M, M) cost matrix, as a
+    pfeddst round on a fabric passes them: indices exact against the
+    plain version, values rtol 1e-4."""
+    from repro_torch.fl.engine import net_streams
+
+    fab = _fabric(topo, m, cuda, ring_hops=3)
+    cand, _, _ = fab.round_masks(net_streams((m, 0)))
+    x, last, s_l, t, _, _ = _case(m, 513, m, cuda, matrix_cost=False,
+                                  cand=False)
+    args = (x, last, s_l, t, fab.cost, cand)
+    v, i, s = ops.select_topk(*args, k=k, alpha=ALPHA, lam=LAM)
+    pv, pi, ps = ops.select_topk(*args, k=k, alpha=ALPHA, lam=LAM,
+                                 impl="plain")
+    assert torch.equal(i, pi)
+    torch.testing.assert_close(v, pv, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(s, ps, rtol=1e-4, atol=1e-6 * m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,f", [(16, 70001), (65536, 64)])
+def test_gossip_mix_kernel_bitwise_at_packed_ring_shapes(cuda, m, f):
+    """The fabric's new gossip_mix shapes, bitwise against the plain
+    version: an undirected plan on a ring (the topology bound D = 3, as
+    dfedavgm and dispfl pack it), and the packed fabric's mix at
+    M = 65536 (self and k = 4 picks from hier_ring neighbour lists)."""
+    from repro_torch.core.aggregation import selection_to_weights
+    from repro_torch.fl.engine import gossip_edges, net_streams
+    from repro_torch.kernels.gossip_mix import (gossip_degree_bound,
+                                                weights_to_neighbors)
+
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn((m, f), generator=g, device=cuda)
+    if m <= 16:
+        fab = _fabric("ring", m, cuda)
+        cand, _, _ = fab.round_masks(net_streams((1, 0)))
+        mask = gossip_edges(torch.rand((m, m), generator=g, device=cuda), 4,
+                            directed=False, cand=cand)
+        d = gossip_degree_bound(4, m, directed=False, topo_degree=2)
+        idx, w = weights_to_neighbors(
+            selection_to_weights(mask, include_self=True), d)
+        assert d == 3 and torch.equal(
+            (w != 0).sum(1), mask.sum(1) + 1)
+    else:
+        fab = _fabric("hier_ring", m, cuda, sparse=True)
+        slots, _, _ = fab.round_slots(net_streams((1, 0)))
+        sel = slots & (torch.rand(slots.shape, generator=g, device=cuda)
+                       < 0.8)
+        inv = 1.0 / (sel.sum(1, keepdim=True) + 1.0)
+        rows = torch.arange(m, device=cuda, dtype=torch.int32)[:, None]
+        idx = torch.cat([rows, torch.where(sel, fab.nbr_idx, rows)], 1)
+        w = torch.cat([inv, torch.where(sel, inv, 0.0)], 1)
+        assert idx.shape == (m, 5)
+    got = ops.gossip_mix(x, idx, w)
+    want = ops.gossip_mix(x, idx, w, impl="plain")
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pfeddst", "dfedavgm"])
+def test_fabric_rounds_on_card_agree_with_cpu(cuda, name):
+    """Two rounds on a ring with hetero links and events, on the card (the
+    kernels: select_topk with candidates and the cost matrix; the packed
+    gossip_mix at D = 3) and on the CPU (plain versions, dense mix) from
+    the same state and draws: masks and edges exact, the loss matrix and
+    the parameters within rtol 1e-3."""
+    import dataclasses
+
+    from repro_torch.configs import CommsConfig, FLConfig, get_config
+    from repro_torch.data.synthetic import client_datasets_cifar
+    from repro_torch.fl.strategies import make_strategy
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = dataclasses.replace(get_config("resnet18-cifar").reduced(),
+                              dtype="float32", image_size=8, cnn_width=32)
+    data = client_datasets_cifar(1, 6, samples_per_class=20, image_size=8)
+    train = {"images": data["train_x"], "labels": data["train_y"]}
+    net = CommsConfig(topology="ring", ring_hops=2 if name == "pfeddst"
+                      else 1, link_model="hetero", p_link_drop=0.1,
+                      availability=0.9, p_stale=0.1)
+    fl = FLConfig(num_clients=6, peers_per_round=2, batch_size=8,
+                  client_sample_ratio=0.5, epochs_extractor=1,
+                  epochs_header=1, probe_size=4, use_score_kernel=True,
+                  comms=net)
+    cpu = make_strategy(name, cfg, fl, 1, device="cpu")
+    gpu = make_strategy(name, cfg, fl, 1, device=cuda)
+    assert gpu.fabric.cost.device.type == cuda.type
+    cpu_state = cpu.init(3)
+    def move(t):
+        return t.to(cuda) if t.dim() else t
+
+    gpu_state = (type(cpu_state)(*(tree_map(move, v) for v in cpu_state))
+                 if name == "pfeddst" else tree_map(move, cpu_state))
+    gpu_train = {k: v.to(cuda) for k, v in train.items()}
+    edges = "select_mask" if name == "pfeddst" else "comm_edges"
+    ops.reset_launch_counts()
+    for r in range(2):
+        cpu_state, cm = cpu.round(cpu_state, train, (7, r))
+        gpu_state, gm = gpu.round(gpu_state, gpu_train, (7, r))
+        assert torch.equal(cm[edges], gm[edges].cpu())
+        assert torch.equal(cm["stale"], gm["stale"].cpu())
+    kernel = "select_topk" if name == "pfeddst" else "gossip_mix"
+    assert ops.launch_counts()[kernel] == 2
+    pairs = ((cpu_state.loss_matrix, gpu_state.loss_matrix)
+             if name == "pfeddst" else
+             zip(cpu_state["params"].values(), gpu_state["params"].values()))
+    for want, got in ([pairs] if name == "pfeddst" else pairs):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3,
+                                   atol=max(1e-4, 1e-3 * scale))

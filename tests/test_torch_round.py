@@ -162,12 +162,14 @@ def test_two_rounds_match_reference(setup, name):
 
 def test_run_experiment_history_schema_on_cpu(setup):
     """The port's simulator runs both strategies end to end and reports
-    the reference's History schema, comm fields zero (no fabric)."""
+    the reference's History schema, comm fields zero (no fabric: since
+    the fabric's port, `FLConfig.comms` defaults to a full fabric, so the
+    fabric-less case asks for `comms=None`)."""
     _, cfg, _, _ = setup
     from repro_torch.data.synthetic import client_datasets_cifar
 
     data = client_datasets_cifar(0, M, samples_per_class=20, image_size=8)
-    fl = FLConfig(**FL_KW)
+    fl = FLConfig(comms=None, **FL_KW)
     for name in ("pfeddst", "pfeddst_random"):
         hist = run_experiment(name, cfg, fl, data, num_rounds=2,
                               eval_every=1, steps_per_epoch=1, verbose=False,
