@@ -119,7 +119,9 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             same weights on both: greedy tokens equal, prefill logits and
             the KV cache / rwkv state within 1e-4 of their scale.
 5. profile  one more pfeddst round under torch.profiler; the top CUDA
-            kernels by time go to chiprun_out/chip_smoke_profile.txt.
+            kernels by time go to chiprun_out/chip_smoke_profile.txt (the
+            engine's `stage:<name>` ranges are left out of the kernel
+            sum).
 6. fabric   the comms fabric at the settings of phase 3, 3 rounds each.
             On a ring with hetero links, 10% link drops, 90% availability
             and 10% staleness: pfeddst (select_topk, every call given the
@@ -141,10 +143,37 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             with D = 5; times, peak memory, selected peers checked against
             the live CSR edges, the mix bitwise against the plain version
             on 4096 rows, beside a CSR sparse × dense product.
+7. async    semi-async rounds and the round trace, at the settings of
+            phase 3. (a) identity: pfeddst_async with no device profile
+            and deadline_s=inf against pfeddst from the same seed and
+            keys, 3 rounds each (pfeddst twice), under
+            torch.use_deterministic_algorithms (warn only; the warnings
+            are printed) and cuDNN deterministic: selection masks equal in
+            every round, eff_lag_mean 0 and no round_wall_s; extractor,
+            header, loss_matrix and last_selected bitwise equal at the end,
+            or, where two pfeddst runs differ too, within their spread.
+            (b) stragglers: a bimodal profile (a quarter of the clients 4×
+            slower: 1.7 s and 6.8 s a round at 12 local steps, periods 1
+            and 4 under deadline_s=2.0) on phase 6's ring with
+            stale_mode="serve", 4 rounds through `run_experiment`, the
+            launch counters set to 0 just before. Each round against the
+            host's own draws: active = sampled ∧ online ∧ completer,
+            store.lag = the deadline misses, round_wall_s =
+            min(straggler, 2.0), the headers select_topk scored equal to
+            the live rows of the participants and the ring slots of the
+            others bitwise, select_topk launched on the card with the
+            candidate mask and the cost matrix; History's device columns
+            equal the round metrics. The store's bytes and the peak
+            memory are printed. (c) trace: (b) again with trace= and
+            trace_stages=True (chiprun_out/chip_smoke_async_trace.jsonl);
+            the trace passes the port's `validate_trace` (the card
+            machine has no jax), its device walls equal History's; the
+            stage profile (first and steady ms of each stage) is printed.
 
 Output: each phase's wall, the card's name and power limit (nvidia-smi),
 one `kernels` JSON line (`launches` from phase 3's run of the kernel's
-path, `launches_fabric` from each phase-6 run; mask_evolve's count calls,
+path, `launches_fabric` from each phase-6 run, select_topk's
+`launches_async` from phase 7 (b); mask_evolve's count calls,
 each of 3–5 kernel launches, and its row also gives the leaves those
 calls covered and the whole stage's time and device time; select_topk's
 times are those of the M=16 case with the cost matrix and candidate mask
@@ -1558,6 +1587,316 @@ def fabric_phase(cfg, fl, data, dev, run_experiment, ops, ref) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: semi-async rounds and the round trace
+# ---------------------------------------------------------------------------
+
+ASYNC_PROFILE = dict(family="bimodal", straggler_fraction=0.25,
+                     straggler_slowdown=4.0)
+ASYNC_DEADLINE_S = 2.0
+
+
+def _tree_diff(a: dict, b: dict) -> float:
+    """Largest |a − b| over the leaves of two same-shaped dicts (f32)."""
+    return max(float((a[n].float() - b[n].float()).abs().max()) for n in a)
+
+
+def check_async_identity(cfg, fl, train, dev, rounds=3) -> dict:
+    """Phase 7 (a): pfeddst_async without a profile and with an infinite
+    deadline against pfeddst, same seed and keys, `rounds` rounds under
+    torch.use_deterministic_algorithms and cuDNN deterministic. Masks
+    equal every round; extractor, header, loss_matrix and last_selected
+    bitwise equal at the end unless two pfeddst runs differ too (a library
+    call that is not deterministic): the async run is then held to the
+    spread of the two pfeddst runs. eff_lag_mean 0, no round_wall_s."""
+    import warnings
+
+    import torch
+
+    from repro_torch.fl.strategies import make_strategy
+
+    walls = {}
+
+    def run(name, label):
+        strat = make_strategy(name, cfg, fl, 2, device=dev)
+        state, masks, mets = strat.init(0), [], []
+        torch.cuda.synchronize()
+        for r in range(rounds):
+            t0 = time.perf_counter()
+            state, met = strat.round(state, train, (0, r))
+            torch.cuda.synchronize()
+            walls.setdefault(label, []).append(time.perf_counter() - t0)
+            masks.append(met["select_mask"].cpu())
+            mets.append(met)
+        return state, masks, mets
+
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sync1, masks1, _ = run("pfeddst", "pfeddst")
+            asyn, masks_a, mets_a = run("pfeddst_async", "pfeddst_async")
+            sync2, masks2, _ = run("pfeddst", "pfeddst_again")
+    finally:
+        torch.use_deterministic_algorithms(flags[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = flags[1:]
+    compare_masks("pfeddst_async against pfeddst", masks1, masks_a)
+    compare_masks("pfeddst against pfeddst", masks1, masks2)
+    for met in mets_a:
+        if float(met["eff_lag_mean"]) != 0.0 or "round_wall_s" in met:
+            raise AssertionError("pfeddst_async without a profile: "
+                                 f"eff_lag_mean {float(met['eff_lag_mean'])}"
+                                 f", round_wall_s {'round_wall_s' in met}")
+    fields = {"extractor": (sync1.extractor, sync2.extractor,
+                            asyn.extractor),
+              "header": (sync1.header, sync2.header, asyn.header),
+              "loss_matrix": ({"l": sync1.loss_matrix},
+                              {"l": sync2.loss_matrix},
+                              {"l": asyn.loss_matrix}),
+              "last_selected": ({"t": sync1.last_selected},
+                                {"t": sync2.last_selected},
+                                {"t": asyn.last_selected})}
+    spread, diff = {}, {}
+    for name, (a, b, c) in fields.items():
+        spread[name], diff[name] = _tree_diff(a, b), _tree_diff(a, c)
+        if diff[name] > spread[name]:
+            raise AssertionError(
+                f"pfeddst_async {name} differs from pfeddst by {diff[name]}"
+                f", two pfeddst runs by {spread[name]}")
+    bitwise = all(v == 0.0 for v in diff.values())
+    return dict(rounds=rounds, masks_equal=True,
+                edges=[int(m.sum()) for m in masks_a], bitwise=bitwise,
+                max_abs_diff=diff, pfeddst_spread=spread,
+                round_walls_s=walls,
+                nondeterministic_warnings=sorted({str(w.message)[:120]
+                                                  for w in caught}))
+
+
+def run_async_path(cfg, fl, data, rounds, dev, run_experiment, ops,
+                   trace=None):
+    """Phase 7 (b), and (c) with `trace`: pfeddst_async through
+    `run_experiment` under the bimodal profile, the deadline and the ring
+    with stale serving, the launch counters set to 0 just before. The
+    strategy's rounds are observed (a wrapper around the one
+    `run_experiment` makes) to check, each round, against the host's own
+    draws: active = sampled ∧ online ∧ completer (`completion_schedule`),
+    store.lag = the deadline misses, round_wall_s = min(straggler, deadline),
+    every column the kernel scored equals the live header (participants)
+    or its ring slot (the rest) bitwise, select_topk launched once on the
+    card with the candidate mask and the cost matrix; History's device
+    columns equal the round metrics."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comms import make_fabric
+    from repro_torch.core.scoring import flatten_headers
+    from repro_torch.core.rounds import PFEDDST_STREAMS
+    from repro_torch.fl import hetero, simulator
+    from repro_torch.fl.engine import (named_streams, net_streams,
+                                       sample_participants)
+    from repro_torch.fl.strategies import local_train_steps, make_strategy
+
+    m = fl.num_clients
+    rt = hetero.make_hetero_runtime(fl, m, local_train_steps(
+        "pfeddst_async", fl, 2))
+    periods, offsets = hetero.completion_schedule(rt)
+    rates = hetero.sample_device_vectors(fl.device_profile, m).channel_rate
+    host = make_fabric(fl.comms, m, cost_scale=fl.comm_cost,
+                       channel_rate=rates, device="cpu")
+    seen, calls, mets, counts = [], [], [], []
+    strats = []
+
+    def observed(*args, **kw):
+        strat = make_strategy(*args, **kw)
+        inner = strat.round
+
+        def round_fn(state, data_, key, draws=None):
+            before = dict(rnd=int(state.round), header=state.header,
+                          ring_h={n: t.clone() for n, t in
+                                  state.store.params["h"].items()},
+                          lag=state.store.lag.cpu())
+            new, met = inner(state, data_, key, draws)
+            before["after_lag"] = new.store.lag.cpu()
+            seen.append(before)
+            strats.append(new)
+            return new, met
+
+        strat.round = round_fn
+        return strat
+
+    original = ops.select_topk
+
+    def spy(x, last, s_l, t, cost, cand=None, **kw):
+        calls.append(dict(x=x.clone(), cuda=x.is_cuda,
+                          matrix=isinstance(cost, torch.Tensor)
+                          and cost.dim() == 2, cand=cand is not None))
+        return original(x, last, s_l, t, cost, cand, **kw)
+
+    def on_round(r, met):
+        counts.append(ops.launch_counts()["select_topk"])
+        mets.append({k: met[k].cpu() if isinstance(met[k], torch.Tensor)
+                     else met[k] for k in met})
+
+    make = simulator.make_strategy
+    simulator.make_strategy = observed
+    ops.select_topk = spy
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        hist = run_experiment("pfeddst_async", cfg, fl, data,
+                              num_rounds=rounds, eval_every=rounds,
+                              steps_per_epoch=2, seed=0, verbose=False,
+                              device=dev, on_round=on_round, trace=trace,
+                              trace_stages=trace is not None)
+        total = time.perf_counter() - t0
+    finally:
+        simulator.make_strategy = make
+        ops.select_topk = original
+    peak = torch.cuda.max_memory_allocated()
+    h = hist.to_dict()
+    # the stage profile's rounds (trace_stages) call select_topk first
+    calls = calls[len(calls) - rounds:]
+    v = rt.depth
+    lag_want = torch.zeros(m, dtype=torch.int32)
+    per_round = []
+    for r in range(rounds):
+        met, obs, call = mets[r], seen[r], calls[r]
+        streams = named_streams((0, r), PFEDDST_STREAMS)
+        _, sampled = sample_participants(
+            streams["act"], m, fl.client_sample_ratio, device="cpu")
+        _, avail, stale = host.round_masks(net_streams((0, r)))
+        done = torch.from_numpy(hetero.completers(periods, offsets, r))
+        pre = sampled & avail
+        active = met["active"]
+        if not torch.equal(active, pre & done):
+            raise AssertionError(f"async round {r}: active {active.tolist()}"
+                                 f", sampled ∧ online ∧ completer "
+                                 f"{(pre & done).tolist()}")
+        if not torch.equal(met["stale"], stale):
+            raise AssertionError(f"async round {r}: stale draws differ")
+        blocked = pre & ~done
+        lag_want = torch.where(active, 0, torch.where(
+            blocked, lag_want + 1, lag_want)).to(torch.int32)
+        if not torch.equal(obs["after_lag"], lag_want):
+            raise AssertionError(f"async round {r}: store.lag "
+                                 f"{obs['after_lag'].tolist()}, deadline "
+                                 f"misses {lag_want.tolist()}")
+        wall = torch.from_numpy(rt.wall_s)
+        straggler = float(torch.where(pre, wall, 0.0).max())
+        if float(met["straggler_wall_s"]) != straggler or \
+                float(met["round_wall_s"]) != min(straggler,
+                                                  ASYNC_DEADLINE_S):
+            raise AssertionError(
+                f"async round {r}: round_wall_s {float(met['round_wall_s'])}"
+                f", straggler {float(met['straggler_wall_s'])}, want "
+                f"{straggler} capped at {ASYNC_DEADLINE_S}")
+        if not (call["cuda"] and call["matrix"] and call["cand"]):
+            raise AssertionError(f"async round {r}: select_topk call "
+                                 f"{ {k: call[k] for k in call if k != 'x'} }")
+        idx = (obs["rnd"] - 1 - stale.clamp(0, v - 1).long()) % v
+        cols = torch.arange(m)
+        slot = {n: t[idx.to(t.device), cols.to(t.device)]
+                for n, t in obs["ring_h"].items()}
+        act = active.to(dev)
+        view = {n: torch.where(act.reshape((-1,) + (1,) * (t.dim() - 1)),
+                               obs["header"][n], slot[n])
+                for n, t in slot.items()}
+        if not torch.equal(call["x"], flatten_headers(view)):
+            raise AssertionError(f"async round {r}: the scored headers are "
+                                 "not the live and served rows")
+        mask = met["select_mask"]
+        if bool(mask[~active].any()) or bool(mask.diagonal().any()):
+            raise AssertionError(f"async round {r}: inactive rows select")
+        per_round.append(dict(
+            active=int(active.sum()), blocked=int(blocked.sum()),
+            served_stale=int((~active & (stale > 0)).sum()),
+            edges=int(mask.sum()),
+            eff_lag_mean=float(met["eff_lag_mean"]),
+            serve_age_mean=float(met["serve_age_mean"]),
+            round_wall_s=float(met["round_wall_s"])))
+    launches = [b - a for a, b in zip([0] + counts, counts)]
+    if min(launches) < 1:
+        raise AssertionError(f"async: select_topk launches per round "
+                             f"{launches}")
+    for col, key in (("round_device_wall_s", "round_wall_s"),
+                     ("round_straggler_wall_s", "straggler_wall_s"),
+                     ("round_eff_lag", "eff_lag_mean")):
+        if h[col] != [float(met[key]) for met in mets]:
+            raise AssertionError(f"async History {col} {h[col]} against "
+                                 "the round metrics")
+    if not math.isclose(h["device_time_s"][-1], sum(h["round_device_wall_s"]),
+                        rel_tol=1e-9):
+        raise AssertionError(f"async device_time_s {h['device_time_s']}")
+    if not all(math.isfinite(a) for a in h["accuracy"]):
+        raise AssertionError("async: accuracy not finite")
+    store = strats[-1].store
+    store_bytes = sum(t.numel() * t.element_size() for d in
+                      store.params.values() for t in d.values()) + \
+        store.pub_round.numel() * 4 + store.lag.numel() * 4
+    steady = h["wall_s"][-1] / max(rounds - 1, 1)
+    return dict(rounds=rounds, periods=sorted(set(periods.tolist())),
+                wall_s={"fast": float(np.min(rt.wall_s)),
+                        "slow": float(np.max(rt.wall_s))},
+                per_round=per_round, launches=ops.launch_counts(),
+                select_topk_per_round=launches,
+                device_wall_s=h["round_device_wall_s"],
+                device_time_s=h["device_time_s"][-1],
+                compile_s=h["compile_s"], steady_round_s=steady,
+                total_s=total, store_bytes=store_bytes, peak_bytes=peak)
+
+
+def async_phase(cfg, fl, data, dev, run_experiment, ops) -> dict:
+    """Phase 7 (module docstring); prints its rows and returns the
+    stragglers run's select_topk launches."""
+    from repro_torch.configs import CommsConfig, DeviceProfile
+    from repro_torch.obs.trace import validate_trace
+
+    train = {"images": data["train_x"].to(dev),
+             "labels": data["train_y"].to(dev)}
+    ident = check_async_identity(cfg, fl, train, dev)
+    print("async (a) identity: pfeddst_async = pfeddst "
+          f"({'bitwise' if ident['bitwise'] else 'within the pfeddst spread'}"
+          ")", json.dumps(ident), flush=True)
+    fl_async = dataclasses.replace(
+        fl, device_profile=DeviceProfile(**ASYNC_PROFILE),
+        deadline_s=ASYNC_DEADLINE_S,
+        comms=CommsConfig(stale_mode="serve", **FABRIC_NET))
+    strag = run_async_path(cfg, fl_async, data, 4, dev, run_experiment, ops)
+    print("async (b) stragglers: schedule, lags, served columns bitwise, "
+          "select_topk every round", json.dumps(strag), flush=True)
+    print(f"async store: {strag['store_bytes']} B "
+          f"({strag['store_bytes'] / 1e9:.3f} GB), peak memory "
+          f"{strag['peak_bytes'] / 1e9:.3f} GB", flush=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    path = OUT_DIR / "chip_smoke_async_trace.jsonl"
+    traced = run_async_path(cfg, fl_async, data, 4, dev, run_experiment,
+                            ops, trace=str(path))
+    records, errors = validate_trace(str(path))
+    if errors:
+        raise AssertionError(f"async (c) trace invalid: {errors[:5]}")
+    rounds = [r for r in records if r["type"] == "round"]
+    if [r["device"]["wall_s"] for r in rounds] != traced["device_wall_s"]:
+        raise AssertionError("async (c) trace device walls differ from "
+                             "History")
+    profile = next(r["stages"] for r in records
+                   if r["type"] == "stage_profile")
+    print(f"async (c) trace: {len(records)} records valid "
+          f"({path.name}); steady round {traced['steady_round_s']:.4f} s",
+          flush=True)
+    print("async stage profile (ms, first / steady):", json.dumps(
+        {k: [round(v["first_s"] * 1e3, 3), round(v["steady_s"] * 1e3, 3)]
+         for k, v in profile.items()}), flush=True)
+    return dict(identity=ident, stragglers=strag, traced=traced,
+                stage_profile=profile)
+
+
 def main() -> int:
     try:
         import torch
@@ -1787,9 +2126,13 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
+    # the engine's `stage:<name>` profiler ranges also show as device
+    # rows (a range's span on the device's timeline); they are not
+    # kernels, so they stay out of the kernel sum
+    kernels_only = [e for e in events if e.device_type == DeviceType.CUDA
+                    and not e.key.startswith("stage:")]
     # device time = the kernels' own rows (the operator rows repeat it)
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == DeviceType.CUDA)
+    dev_us = sum(e.self_device_time_total for e in kernels_only)
     table = events.table(sort_by="self_device_time_total", row_limit=25)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_profile.txt").write_text(
@@ -1798,7 +2141,7 @@ def main() -> int:
     print(f"profile: steady pfeddst round wall {wall:.4f} s (profiled), "
           f"device kernel time {dev_us / 1e6:.4f} s "
           f"(busy share {dev_us / 1e6 / wall:.3f})", flush=True)
-    top = sorted(events, key=lambda e: e.self_device_time_total,
+    top = sorted(kernels_only, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
@@ -1813,6 +2156,12 @@ def main() -> int:
                                    ref)
     walls["6 fabric"] = time.perf_counter() - t_phase
     print(f"phase 6 wall: {walls['6 fabric']:.1f} s", flush=True)
+
+    t_phase = time.perf_counter()
+    # ---- 7. semi-async rounds and the round trace ----------------------------
+    async_rows = async_phase(cfg, fl, data, dev, run_experiment, ops)
+    walls["7 async"] = time.perf_counter() - t_phase
+    print(f"phase 7 wall: {walls['7 async']:.1f} s", flush=True)
 
     # ---- output -------------------------------------------------------------
     k_main = main_sel[-1]
@@ -1887,6 +2236,8 @@ def main() -> int:
         entry["launches_fabric"] = {run: counts[entry["name"]]
                                     for run, counts in
                                     launches_fabric.items()}
+    kernels[0]["launches_async"] = \
+        async_rows["stragglers"]["launches"]["select_topk"]
     print("round walls (s):", json.dumps(
         {r["name"]: r["round_walls_s"] for r in paths}), flush=True)
     print("serving (s, tokens/s):", json.dumps(

@@ -65,7 +65,7 @@ def cost_scores(link: LinkModel, scale: float = 1.0) -> np.ndarray:
 
 def scale_by_channel_rate(link: LinkModel, channel_rate) -> LinkModel:
     """Scale a LinkModel by per-client relative channel rates (a device
-    profile's channel rates; the semi-async layer is not ported yet).
+    profile's channel rates, `fl.hetero.sample_device_vectors`).
 
     A link runs at the slower endpoint's rate (same convention as
     `hetero_links`): bandwidth scales with `min(rate_i, rate_j)`,

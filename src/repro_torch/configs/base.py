@@ -5,10 +5,11 @@
 dense and ssm (RWKV6) LLM families that the serving path runs. The
 reference's MoE, MLA, hybrid, audio and vlm fields are not ported (ROADMAP
 queue 1 item 12). `FLConfig` keeps the Section III protocol and the
-network fabric (`CommsConfig`, `repro_torch.comms`). Its
-`device_profile` and `threat` fields exist so that a config can ask for
-them, but `fl.strategies.make_strategy` refuses them: the semi-async and
-open-world layers are not ported yet (ROADMAP queue 1 items 9 and 11).
+network fabric (`CommsConfig`, `repro_torch.comms`), and the semi-async
+rounds' device model (`DeviceProfile`, `deadline_s`, `staleness_alpha`,
+`version_depth`; `repro_torch.fl.hetero`). Its `threat` field exists so
+that a config can ask for it, but `fl.strategies.make_strategy` refuses
+it: the open-world layer is not ported yet (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -123,7 +124,8 @@ class CommsConfig:
     max_staleness: int = 3      # staleness horizon (rounds)
     stale_mode: str = "drop"    # "drop": a stale peer loses its candidate
                                 # column; "serve": it stays selectable
-                                # (versioned strategies, not ported)
+                                # (a versioned strategy serves its
+                                # published snapshot, pfeddst_async)
 
     # --- payload ------------------------------------------------------------
     payload_bits: int = 0       # quantized bits/param (0 → native dtype)
@@ -138,6 +140,35 @@ class CommsConfig:
             raise ValueError(
                 "sparse=True requires a static topology (the dynamic "
                 "graph is resampled every round and has no CSR)")
+
+
+@dataclass(frozen=True)
+class DeviceProfile:
+    """Per-client device capability model (`repro_torch.fl.hetero`).
+
+    Sampled once per experiment into three (M,) vectors — relative
+    compute speed, channel rate and energy scale — that feed the
+    per-client round wall-time of the semi-async deadline gate and the
+    link-cost `c` matrix of the Eq. 9 peer score (a slow channel makes a
+    peer less attractive to pull).
+
+    Families:
+      uniform   every device identical (speed 1.0), the paper's implicit
+                assumption; the semi-async rounds then reduce exactly to
+                the synchronous protocol.
+      bimodal   `straggler_fraction` of the clients run
+                `straggler_slowdown` times slower.
+      zipf      speed ∝ rank^(−zipf_exponent) over a random permutation
+                of the clients: a long-tailed capability distribution.
+    """
+    family: str = "uniform"            # uniform | bimodal | zipf
+    straggler_fraction: float = 0.25   # bimodal: fraction of slow devices
+    straggler_slowdown: float = 4.0    # bimodal: slow-device speed = 1/this
+    zipf_exponent: float = 1.1         # zipf: speed_i = rank_i^(−exponent)
+    step_time_s: float = 0.1           # reference-device seconds / local step
+    comm_s: float = 0.5                # reference payload transfer seconds
+    rate_follows_speed: bool = True    # slow compute ⇒ equally slow channel
+    seed: int = 0                      # device-vector sampling seed
 
 
 @dataclass(frozen=True)
@@ -169,6 +200,18 @@ class FLConfig:
     # network model; None → the scalar-cost path (no candidate masking,
     # no byte accounting)
     comms: Optional[CommsConfig] = field(default_factory=CommsConfig)
+    # --- device heterogeneity + semi-async rounds (fl.hetero) --------------
+    # None → every device identical (no device wall-time in History)
+    device_profile: Optional[DeviceProfile] = None
+    # per-round deadline in seconds of simulated device time. inf or <= 0
+    # → synchronous rounds (a round stalls on its slowest sampled client);
+    # finite → pfeddst_async gates out the clients whose round wall-time
+    # exceeds it and serves their published snapshots meanwhile
+    deadline_s: float = float("inf")
+    # staleness discount of semi-async aggregation: a version `lag` rounds
+    # old mixes with weight (1 + lag)^(−staleness_alpha)
+    staleness_alpha: float = 0.5
+    # ring depth V of pfeddst_async's versioned peer store
+    version_depth: int = 4
     # not ported: make_strategy refuses any value but None
-    device_profile: Optional[Any] = None   # ROADMAP queue 1 item 9
     threat: Optional[Any] = None           # ROADMAP queue 1 item 11

@@ -5,7 +5,8 @@ of stages of blocks) with HWIO conv weights; the port keeps a flat dict
 of dotted names with OIHW conv weights. These functions convert numpy
 trees (the reference's arrays after `np.asarray`) to the port's tensors
 and back, so a test can feed both packages the same state and compare in
-the reference's layout: the PFedDST PopulationState, and the baselines'
+the reference's layout: the PFedDST PopulationState (with
+pfeddst_async's peer store), and the baselines'
 dict states (params, optimizer state, round, dispfl's masks). Leaves may
 carry leading axes (a stacked population): only the last four axes of a
 conv weight are transposed.
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.core.client_state import PopulationState
 from repro_torch.device import resolve_device
+from repro_torch.fl.hetero import PeerStore
 
 CONV_LEAVES = ("conv", "conv1", "conv2", "proj")
 
@@ -135,12 +137,41 @@ def population_from_reference(state_np, device="cuda") -> PopulationState:
         last_selected=torch.from_numpy(
             np.array(get("last_selected"), np.int32)).to(device),
         round=torch.from_numpy(np.array(get("round"), np.int32)),
+        store=_store_from_reference(_field(state_np, "store"), device),
     )
+
+
+def _field(state, name):
+    return (state.get(name) if isinstance(state, dict)
+            else getattr(state, name, None))
+
+
+def _store_from_reference(store, device):
+    """A reference PeerStore (numpy leaves; `params` {"e", "h"} with
+    (V, M, ...) leaves) → the port's, or None."""
+    if store is None:
+        return None
+    get = (store.__getitem__ if isinstance(store, dict)
+           else lambda f: getattr(store, f))
+    params = get("params")
+    return PeerStore(
+        params={k: params_from_reference(v, device=device)
+                for k, v in params.items()},
+        pub_round=torch.from_numpy(
+            np.array(get("pub_round"), np.int32)).to(device),
+        lag=torch.from_numpy(np.array(get("lag"), np.int32)).to(device))
 
 
 def population_to_reference(state: PopulationState) -> dict:
     """The port's PopulationState → a dict of the reference's fields as
-    numpy trees (reference layout)."""
+    numpy trees (reference layout); a peer store as a dict of its
+    fields."""
+    store = None
+    if state.store is not None:
+        store = {"params": {k: params_to_reference(v)
+                            for k, v in state.store.params.items()},
+                 "pub_round": state.store.pub_round.cpu().numpy(),
+                 "lag": state.store.lag.cpu().numpy()}
     return {
         "extractor": params_to_reference(state.extractor),
         "header": params_to_reference(state.header),
@@ -149,6 +180,7 @@ def population_to_reference(state: PopulationState) -> dict:
         "loss_matrix": state.loss_matrix.cpu().numpy(),
         "last_selected": state.last_selected.cpu().numpy(),
         "round": state.round.cpu().numpy(),
+        "store": store,
     }
 
 

@@ -25,6 +25,9 @@ class PopulationState(NamedTuple):
     loss_matrix: Any     # (M, M) f32 — loss array l (Eq. 6 cache)
     last_selected: Any   # (M, M) int32 — recency array t (−1 = never)
     round: Any           # () int32, on the CPU
+    # pfeddst_async's versioned peer store (fl.hetero.PeerStore); None for
+    # every other strategy
+    store: Any = None
 
 
 def stack_trees(trees: list):

@@ -18,8 +18,13 @@ candidate mask `ctx.cand` restricts every selection mode (and the fused
 `select_topk` kernel), the Eq. 9 cost is `ctx.cost` (else the scalar
 `fl.comm_cost`), and a packed fabric's neighbour view `ctx.nbr` routes
 the top-k scoring through `score_topk_sparse`. Not ported yet: the
-semi-async `hetero` variant (ROADMAP queue 1 item 9, asking for it
-raises) and the threat/defense hooks (item 11).
+threat/defense hooks (ROADMAP queue 1 item 11).
+
+Passing a `fl.hetero.HeteroRuntime` (the `pfeddst_async` strategy) wraps
+the same stages with the deadline gate, serving from the versioned peer
+store and staleness-weighted aggregation, and a publish stage:
+(gate, score_select, aggregate, phase_e, phase_h, publish,
+update_context).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 from repro_torch.core.aggregation import (
     aggregate_extractors,
     selection_to_weights,
+    staleness_weights,
 )
 from repro_torch.core.client_state import PopulationState
 from repro_torch.core.partial_freeze import PhaseSteps
@@ -58,6 +64,12 @@ from repro_torch.fl.engine import (
     train_sampled,
     where_tree,
 )
+from repro_torch.fl.hetero import (
+    pull_staleness,
+    stage_deadline_gate,
+    store_publish,
+    store_serve,
+)
 from repro_torch.models.split import merge_params
 
 # stream layout of one PFedDST round (the reference's PFEDDST_STREAMS)
@@ -72,11 +84,15 @@ def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
     use_score_kernel: route Eq. 7–9 scoring + top-k through the fused
     `select_topk` kernel (topk selection), or the Eq. 7 Gram through the
     `raw_gram` kernel (threshold and random selection, which keep the
-    dense chain)."""
-    if hetero is not None:
-        raise NotImplementedError(
-            "the semi-async pfeddst_async round is not ported yet "
-            "(ROADMAP queue 1 item 9)")
+    dense chain).
+
+    hetero: optional `fl.hetero.HeteroRuntime`, the semi-async variant.
+    It prepends the deadline gate, scores and aggregates against the
+    peer store's served snapshots (Eq. 7 sees the header a peer actually
+    publishes; the pull lag is discounted by `(1 + lag)^(−α)`), and
+    appends the publish stage. The Eq. 6 rows evaluate the row client's
+    own (always fresh) model and do not version. With a uniform profile
+    and an infinite deadline every hetero operation is an identity."""
 
     def score_select(state: PopulationState, ctx: RoundContext):
         # ---- 1. scoring — Eq. 6 restricted to the sampled rows ------------
@@ -89,8 +105,27 @@ def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
                                        probe)                    # (n, M)
         s_l = state.loss_matrix.clone()
         s_l[ctx.sampled_idx] = s_l_rows
+        header_view = state.header
+        if hetero is not None:
+            # absent peers serve their published snapshot (a channel lag
+            # picks an older slot); this round's participants exchange in
+            # real time, so their columns (each client's own diagonal
+            # included) are their live state, of age 0. Their deadline
+            # misses still discount them through store.lag.
+            ctx.store = state.store
+            served, age = store_serve(state.store, int(state.round),
+                                      ctx.stale)
+            served = {"e": where_tree(ctx.active, state.extractor,
+                                      served["e"]),
+                      "h": where_tree(ctx.active, state.header,
+                                      served["h"])}
+            age = torch.where(ctx.active, 0, age)
+            lag = pull_staleness(state.store, ctx.stale, hetero.depth,
+                                 active=ctx.active)
+            ctx.aux.update(served=served, serve_age=age, pull_lag=lag)
+            header_view = served["h"]
         cost = fl.comm_cost if ctx.cost is None else ctx.cost
-        flat = flatten_headers(state.header)
+        flat = flatten_headers(header_view)
         k = min(fl.peers_per_round, m - 1)
         fused = (use_score_kernel and m > 1 and fl.peers_per_round > 0
                  and fl.selection not in ("threshold", "random"))
@@ -156,14 +191,28 @@ def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
                 ctx.record(f"sel_{name}_mean",
                            torch.where(mask, mat, 0.0).sum() / n_sel)
 
+        if hetero is not None:
+            lag = ctx.aux["pull_lag"]
+            weights = staleness_weights(mask, lag, alpha=hetero.alpha)
+            n_edges = mask.sum().clamp_min(1)
+            ctx.metrics["eff_lag_mean"] = torch.where(
+                mask, lag[None, :].float(), 0.0).sum() / n_edges
+            ctx.metrics["eff_lag_max"] = torch.where(
+                mask, lag[None, :], 0).max()
+            ctx.metrics["serve_age_mean"] = torch.where(
+                mask, ctx.aux["serve_age"][None, :].float(),
+                0.0).sum() / n_edges
+        else:
+            weights = selection_to_weights(mask, include_self=True)
         ctx.plan = ExchangePlan("p2p", active=ctx.active, edges=mask,
-                                weights=selection_to_weights(
-                                    mask, include_self=True))
+                                weights=weights)
         return state
 
     def aggregate(state: PopulationState, ctx: RoundContext):
         # ---- 3. aggregate extractors --------------------------------------
-        agg_e = aggregate_extractors(state.extractor, ctx.plan.weights)
+        src_e = (ctx.aux["served"]["e"] if hetero is not None
+                 else state.extractor)
+        agg_e = aggregate_extractors(src_e, ctx.plan.weights)
         ctx.aux["agg_e"] = where_tree(ctx.active, agg_e, state.extractor)
         return state
 
@@ -242,7 +291,21 @@ def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
             round=state.round + 1,
         )
 
-    return (score_select, aggregate, phase_e, phase_h, update_context)
+    if hetero is None:
+        return (score_select, aggregate, phase_e, phase_h, update_context)
+
+    def publish(state: PopulationState, ctx: RoundContext):
+        # ---- 5.5 publish: the completers' snapshots enter the ring --------
+        # (in place: this round consumes its input state's store)
+        store = store_publish(state.store,
+                              {"e": state.extractor, "h": state.header},
+                              ctx.active, ctx.aux["deadline_blocked"],
+                              int(state.round))
+        return state._replace(store=store)
+
+    gate = stage_deadline_gate(hetero, get_round=lambda s: s.round)
+    return (gate, score_select, aggregate, phase_e, phase_h, publish,
+            update_context)
 
 
 def pfeddst_round(cfg, fl, steps: PhaseSteps, state: PopulationState,

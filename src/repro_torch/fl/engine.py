@@ -1,14 +1,18 @@
-"""Round engine for decentralized FL — the synchronous part of reference
-`repro.fl.engine`.
+"""Round engine for decentralized FL — reference `repro.fl.engine`
+(without the chunked scan path `make_multi_round`).
 
 A round is an ordered tuple of stages `(state, ctx) -> state` run by
 `run_round`, which owns participation (client sampling × the comms
 fabric's availability), the named random streams, the network hooks
 (candidate mask, Eq. 9 cost matrix, the packed neighbour view of a
 `SparseFabric`) and the metrics contract (`active`, `stale`,
-`comm_edges`). The stage library below (plans, training, server
-averaging, gossip mixing) is what the baselines of `fl.strategies`
-compose.
+`comm_edges`; the semi-async stages add `round_wall_s` and
+`straggler_wall_s` (the deadline gate, under a DeviceProfile) and
+`eff_lag_mean`, `eff_lag_max`, `serve_age_mean` (versioned pulls)). The
+stage library below (plans, training, server averaging, gossip mixing)
+is what the baselines of `fl.strategies` compose. Each stage's name (its
+`stage_name` attribute, else its function name) labels its span in a
+profile and its row of the stage profile (`obs.timers`).
 
 Randomness: `named_streams` turns a round key (a tuple of ints, e.g.
 `(seed, round)`) into one CPU `torch.Generator` per named stream, in the
@@ -62,6 +66,7 @@ from repro_torch.kernels.gossip_mix import (
     weights_to_neighbors,
 )
 from repro_torch.models.split import merge_params, split_params
+from repro_torch.obs.timers import annotate, stage_name
 from repro_torch.utils.pytree import tree_map
 
 # keys the network generators apart from the strategy's streams (whose
@@ -250,10 +255,22 @@ class RoundContext:
                  `score_topk_sparse`
     cost         (M, M) Eq. 9 c matrix from the fabric (None → the scalar
                  FLConfig.comm_cost)
-    stale        (M,) int32 per-peer staleness lag (zeros without a fabric)
+    stale        (M,) int32 per-peer staleness lag (zeros without a
+                 fabric); under `CommsConfig.stale_mode="serve"` a
+                 versioned strategy picks the ring slot each peer serves
+                 by it
     plan         the ExchangePlan (set by the plan stage)
+    store        the `fl.hetero.PeerStore` a versioned strategy serves
+                 peers from this round (None otherwise); an exposure for
+                 custom stages, the library stages read the state's store
+    devices      the `fl.hetero.DeviceVectors` (set by the deadline gate,
+                 None otherwise)
     aux          stage-to-stage scratch values
     metrics      round metrics
+
+    A stage may refine `active` (the deadline gate intersects it with the
+    round's completers); later stages and `metrics["active"]` see the
+    refined mask.
     """
     m: int
     data: Any
@@ -267,6 +284,8 @@ class RoundContext:
     cost: Any = None
     stale: Any = None
     plan: Optional[ExchangePlan] = None
+    store: Any = None
+    devices: Any = None
     aux: dict = field(default_factory=dict)
     metrics: dict = field(default_factory=dict)
 
@@ -352,7 +371,9 @@ def run_round(stages, state, data, key, *, m: int, ratio: float,
                        cand_bounded=cand_bounded, nbr=nbr, cost=cost,
                        stale=stale)
     for stage in stages:
-        state = stage(state, ctx)
+        # a profiler span per stage (torch.profiler groups ops by it)
+        with annotate(f"stage:{stage_name(stage)}"):
+            state = stage(state, ctx)
     metrics = ctx.metrics
     metrics.setdefault("active", ctx.active)
     metrics.setdefault("stale", stale)

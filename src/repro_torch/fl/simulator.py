@@ -1,5 +1,6 @@
 """Population FL simulator — round loop + personalized evaluation,
-reference `repro.fl.simulator` (a per-round loop, no trace).
+reference `repro.fl.simulator` (the per-round loop; the chunked scan
+path is ROADMAP queue 1 item 6).
 
 Personalized test accuracy = mean over clients of client i's model on
 client i's OWN test split (the paper's primary metric); FedBABU's
@@ -12,8 +13,17 @@ every round's exchange is priced on the simulated network by
 per-round bytes, simulated network time and staleness, and cumulative
 bytes, network time and energy at each eval point. `FLConfig(comms=None)`
 is the paper's costless scalar world: those fields stay zero. Only
-parameter traffic is priced. The device-heterogeneity fields stay zero
-(the semi-async layer is not ported).
+parameter traffic is priced.
+
+Under a `FLConfig.device_profile`, `History` also gets the simulated
+device wall-clock: pfeddst_async's rounds report their deadline-capped
+duration (`round_wall_s` from the gate), a synchronous round stalls on
+its slowest participant. Without a profile those columns stay zero.
+
+`trace=` writes the reference's schema-v1 JSONL round trace
+(`obs.trace`): a header, optionally a stage profile (`trace_stages`: 2
+instrumented rounds on throwaway state), one record per round, the
+cumulative selection graph and a summary.
 """
 from __future__ import annotations
 
@@ -28,13 +38,31 @@ from repro_torch.core.client_state import stack_trees
 from repro_torch.core.partial_freeze import make_phase_steps
 from repro_torch.data.pipeline import as_index_tensor
 from repro_torch.device import resolve_device
-from repro_torch.fl.engine import named_streams
-from repro_torch.fl.strategies import make_strategy
+from repro_torch.fl.engine import named_streams, run_round
+from repro_torch.fl.hetero import local_wall_times, sample_device_vectors
+from repro_torch.fl.strategies import local_train_steps, make_strategy
 from repro_torch.models import model as model_mod
 from repro_torch.models.split import merge_params, split_params
+from repro_torch.obs.registry import scalar_metrics
+from repro_torch.obs.selection_probe import SelectionGraph
+from repro_torch.obs.timers import (
+    RoundClock,
+    StageTimes,
+    fence,
+    instrument_stages,
+)
+from repro_torch.obs.trace import (
+    TraceWriter,
+    header_record,
+    round_record,
+    score_block,
+    stage_profile_record,
+    summary_record,
+)
 from repro_torch.optim.sgd import sgd
 
 FT_STREAM_KEY = 1 << 20   # keys eval-time fine-tune draws apart from rounds
+PROFILE_STREAM_KEY = 1 << 21   # keys the stage profile's rounds apart
 
 
 @torch.no_grad()
@@ -161,22 +189,35 @@ def _message_bytes(strat, cfg, fl, state) -> int:
     return int(round(payload * strat.payload_fraction))
 
 
-def scalar_metrics(metrics: dict) -> dict:
-    """Every 0-d entry of a round's metrics as {name: float}."""
-    return {name: float(v) for name, v in metrics.items()
-            if np.ndim(v) == 0}
-
-
-def _fence(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _profile_stages(strat, fl, train_data, seed: int, *,
+                    rounds: int = 2) -> dict:
+    """Per-stage first/steady profile on THROWAWAY state: `rounds`
+    instrumented rounds (`obs.timers.instrument_stages`) from a fresh
+    init, their own round keys and draws, so the main run's state,
+    streams and network draws are untouched (its peer store included:
+    the throwaway state has its own)."""
+    times = StageTimes()
+    stages = instrument_stages(strat.stages, times)
+    state = strat.init(seed)
+    for r in range(rounds):
+        aff = (strat.affinity(state) if strat.fabric is not None
+               and strat.affinity is not None else None)
+        state, _ = run_round(stages, state, train_data,
+                             (seed, PROFILE_STREAM_KEY, r),
+                             m=fl.num_clients,
+                             ratio=fl.client_sample_ratio,
+                             key_streams=strat.key_streams,
+                             fabric=strat.fabric, affinity=aff)
+    return times.summary()
 
 
 def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
                    num_rounds: int, eval_every: int = 5,
                    steps_per_epoch: int = 2, seed: int = 0,
                    verbose: bool = True, device="cuda",
-                   on_round=None) -> History:
+                   on_round=None, trace: str | None = None,
+                   trace_stages: bool = False,
+                   trace_edges: bool = False) -> History:
     """data: dict(train_x, train_y, test_x, test_y), leading-M stacked
     (tensors or numpy arrays; moved to `device`).
 
@@ -187,7 +228,16 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
     The network comes from `fl.comms` (a `CommsConfig`: topology,
     ring_hops, hier_cluster, ..., link_model, the events p_link_drop,
     availability, p_stale, and sparse=True for the packed fabric; None
-    for the costless scalar path)."""
+    for the costless scalar path); the device model from
+    `fl.device_profile` and `fl.deadline_s`.
+
+    trace: path of a schema-v1 JSONL round trace (`obs.trace`): one
+    record per round with its wall, comm and device blocks, every
+    recorded scalar metric and, when the strategy selects, the Eq. 9
+    score decomposition; closed by the cumulative selection graph and a
+    summary. trace_stages adds a 2-round stage profile on throwaway state
+    (`_profile_stages`); trace_edges embeds each round's selected edges.
+    With trace=None the run is unchanged."""
     device = resolve_device(device)
     strat = make_strategy(strategy_name, cfg, fl, steps_per_epoch,
                           device=device)
@@ -196,19 +246,39 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
     state = strat.init(seed)
 
     payload = _message_bytes(strat, cfg, fl, state)
+    # per-client round wall-times of a synchronous strategy under a
+    # device profile (pfeddst_async's gate reports its own through the
+    # metrics); the same step count prices pfeddst_async's runtime
+    wall_np = None
+    if fl.device_profile is not None:
+        devices = sample_device_vectors(fl.device_profile, fl.num_clients)
+        wall_np = local_wall_times(
+            devices, local_train_steps(strategy_name, fl, steps_per_epoch),
+            fl.device_profile)
+
+    tracer = graph = None
+    if trace is not None:
+        tracer = TraceWriter(trace)
+        tracer.write(header_record(
+            strategy=strategy_name, num_clients=fl.num_clients,
+            num_rounds=num_rounds, seed=seed, family=cfg.family,
+            eval_every=eval_every))
+        graph = SelectionGraph(fl.num_clients)
+        if trace_stages:
+            tracer.write(stage_profile_record(_profile_stages(
+                strat, fl, train_data, seed)))
+
     hist = History()
-    steady_s = 0.0
-    cum_bytes, cum_net_s, cum_energy = 0, 0.0, 0.0
+    clock = RoundClock()
+    cum_bytes, cum_net_s, cum_energy, cum_device_s = 0, 0.0, 0.0, 0.0
     t_start = time.time()
     for r in range(num_rounds):
-        t0 = time.perf_counter()
-        state, metrics = strat.round(state, train_data, (seed, r))
-        _fence(device)
-        wall = time.perf_counter() - t0
+        with clock.round():
+            state, metrics = strat.round(state, train_data, (seed, r))
+            # fence, so the clock sees the work, not its queueing
+            fence(device)
         if r == 0:
-            hist.compile_s = wall
-        else:
-            steady_s += wall
+            hist.compile_s = clock.compile_s
         # the accounting reads the round's edges on the host: after the
         # timed wall, never inside it
         if strat.fabric is not None:
@@ -222,19 +292,37 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
         cum_net_s += round_net_s
         cum_energy += round_energy
         mean_lag, max_lag = _stale_summary(metrics.get("stale"))
+        # simulated device wall-clock: a semi-async round reports its
+        # deadline-capped duration; a synchronous round under a device
+        # profile stalls on its slowest participant
+        round_wall = metrics.get("round_wall_s")
+        if round_wall is not None:
+            round_wall = float(round_wall)
+            straggler = float(metrics.get("straggler_wall_s", round_wall))
+        elif wall_np is not None:
+            act = metrics["active"].cpu().numpy()
+            straggler = float(wall_np[act].max()) if act.any() else 0.0
+            round_wall = straggler
+        else:
+            round_wall = straggler = 0.0
+        eff = metrics.get("eff_lag_mean")
+        eff_lag = float(eff) if eff is not None else 0.0
+        cum_device_s += round_wall
         for lst, value in ((hist.round_bytes, round_bytes),
                            (hist.round_net_time_s, round_net_s),
                            (hist.round_stale_lag, mean_lag),
                            (hist.round_stale_max, max_lag),
-                           (hist.round_device_wall_s, 0.0),
-                           (hist.round_straggler_wall_s, 0.0),
-                           (hist.round_eff_lag, 0.0)):
+                           (hist.round_device_wall_s, round_wall),
+                           (hist.round_straggler_wall_s, straggler),
+                           (hist.round_eff_lag, eff_lag)):
             lst.append(value)
-        for name, value in scalar_metrics(metrics).items():
+        scalars = scalar_metrics(metrics)
+        for name, value in scalars.items():
             hist.extra.setdefault(name, []).append(value)
         if on_round is not None:
             on_round(r, metrics)
 
+        eval_point = None
         if (r + 1) % eval_every == 0 or r == num_rounds - 1:
             params = strat.params_for_eval(state)
             if strat.needs_head_finetune:
@@ -250,14 +338,40 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
             hist.rounds.append(r + 1)
             hist.accuracy.append(float(acc))
             hist.train_loss.append(tl)
-            hist.wall_s.append(steady_s)
+            hist.wall_s.append(clock.elapsed())
             hist.comm_bytes.append(cum_bytes)
             hist.net_time_s.append(cum_net_s)
             hist.energy_j.append(cum_energy)
-            hist.device_time_s.append(0.0)
+            hist.device_time_s.append(cum_device_s)
+            eval_point = {"accuracy": float(acc), "train_loss": tl}
             if verbose:
                 print(f"[{strategy_name:16s}] round {r + 1:4d} "
                       f"acc={float(acc):.4f} loss={tl:.4f} "
                       f"comm={cum_bytes / 1e6:.2f}MB net={cum_net_s:.1f}s "
                       f"({time.time() - t_start:.0f}s)", flush=True)
+
+        if tracer is not None:
+            mask = metrics.get("select_mask", metrics.get("comm_edges"))
+            edges = graph.observe(mask) if mask is not None else None
+            tracer.write(round_record(
+                rnd=r, wall_s=clock.last_s, compile_round=(r == 0),
+                active=int(metrics["active"].sum()),
+                stale_mean=mean_lag, stale_max=max_lag,
+                comm={"bytes": round_bytes, "net_time_s": round_net_s,
+                      "energy_j": round_energy},
+                device={"wall_s": round_wall, "straggler_s": straggler,
+                        "eff_lag": eff_lag},
+                metrics=scalars, score=score_block(scalars),
+                edges=sorted(edges) if (trace_edges and edges is not None)
+                else None,
+                eval_point=eval_point))
+
+    if tracer is not None:
+        if graph.rounds > 0:
+            tracer.write(graph.to_record())
+        tracer.write(summary_record(
+            rounds=num_rounds, wall_s=clock.elapsed(),
+            compile_s=clock.compile_s,
+            final_accuracy=hist.accuracy[-1] if hist.accuracy else None))
+        tracer.close()
     return hist

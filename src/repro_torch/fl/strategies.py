@@ -25,8 +25,20 @@ Baselines (paper §III-B), dict states {"params", "opt", "round"[, "mask"]}:
             `gossip_mix` kernel on a card), the header personal.
 PFedDST (`core.rounds.make_pfeddst_stages`) over a PopulationState:
   pfeddst        the paper's method;
-  pfeddst_random ablation, selection="random".
-The semi-async `pfeddst_async` is ROADMAP queue 1 item 9 and raises here.
+  pfeddst_random ablation, selection="random";
+  pfeddst_async  semi-async rounds (`fl.hetero`): the deadline gate,
+                 peers served from a versioned peer store
+                 (`PopulationState.store`, written in place: a round
+                 consumes its input state's store), staleness-weighted
+                 aggregation. With a uniform profile and
+                 `deadline_s=inf` it is pfeddst bit for bit.
+
+A `FLConfig.device_profile` scales the fabric's links and Eq. 9 cost by
+the sampled channel rates (the dense fabric only; the packed one
+refuses them). Stale serving (`CommsConfig.stale_mode="serve"` with
+`p_stale > 0`) needs a versioned strategy: the others warn, as the
+reference does, that stale peers serve live parameters, and that a
+finite `deadline_s` is ignored.
 
 Every strategy carries the comms fabric of `fl.comms` (`Strategy.fabric`,
 on the strategy's device; None with `comms=None`): the engine composes
@@ -38,6 +50,8 @@ bytes, simulated network time and energy with no per-strategy branch.
 from __future__ import annotations
 
 import dataclasses
+import math
+import warnings
 from dataclasses import dataclass
 from typing import Callable
 
@@ -50,6 +64,11 @@ from repro_torch.core.client_state import init_population, stack_trees
 from repro_torch.core.partial_freeze import make_phase_steps
 from repro_torch.core.rounds import PFEDDST_STREAMS, make_pfeddst_stages
 from repro_torch.device import resolve_device
+from repro_torch.fl.hetero import (
+    init_peer_store,
+    make_hetero_runtime,
+    sample_device_vectors,
+)
 from repro_torch.fl.engine import (
     client_slice,
     device_generator,
@@ -74,11 +93,11 @@ from repro_torch.utils.pytree import leaf_order
 
 CENTRAL = ("fedavg", "fedper", "fedbabu")
 GOSSIP = ("dfedavgm", "dispfl", "dfedpgp")
-STRATEGIES = CENTRAL + GOSSIP + ("pfeddst", "pfeddst_random")
+STRATEGIES = CENTRAL + GOSSIP + ("pfeddst", "pfeddst_random",
+                                  "pfeddst_async")
 
-NOT_PORTED = {"pfeddst_async": 9}
 # FLConfig fields of layers not ported yet, and their ROADMAP queue 1 item
-NOT_PORTED_FIELDS = {"device_profile": 9, "threat": 11}
+NOT_PORTED_FIELDS = {"threat": 11}
 
 CENTRAL_STREAMS = ("act", "train")
 GOSSIP_STREAMS = ("act", "train", "nbr", "grow")
@@ -114,6 +133,8 @@ class Strategy:
     fabric: object = None             # comms fabric (None: scalar path)
     stages: tuple = ()                # the round's stages, in order
     key_streams: tuple = ()           # the round's stream layout
+    affinity: Callable = None         # (state) -> (M, M) dynamic steering
+    versioned: bool = False           # carries a fl.hetero PeerStore
 
 
 # ---------------------------------------------------------------------------
@@ -292,20 +313,30 @@ def _gossip_spec(cfg, fl, steps_per_epoch: int, kind: str, device):
 
 def _pfeddst_spec(cfg, fl, steps_per_epoch: int, name: str, device):
     opt = _opt(fl)
+    hetero = None
     if name == "pfeddst_random":
         fl = dataclasses.replace(fl, selection="random")
+    elif name == "pfeddst_async":
+        hetero = make_hetero_runtime(
+            fl, fl.num_clients, local_train_steps(name, fl, steps_per_epoch))
     stages = make_pfeddst_stages(
         cfg, fl, make_phase_steps(cfg, opt), steps_per_epoch=steps_per_epoch,
-        probe_size=fl.probe_size, use_score_kernel=fl.use_score_kernel)
+        probe_size=fl.probe_size, use_score_kernel=fl.use_score_kernel,
+        hetero=hetero)
 
     def init(seed: int):
         gen = torch.Generator(device=device).manual_seed(seed)
-        return init_population(cfg, gen, fl.num_clients, opt, opt, device)
+        state = init_population(cfg, gen, fl.num_clients, opt, opt, device)
+        if hetero is not None:
+            state = state._replace(store=init_peer_store(
+                {"e": state.extractor, "h": state.header}, hetero.depth))
+        return state
 
     # a dynamic topology steers toward the peers the loss array l marked
     # informative last round (Algorithm 1's context)
     return init, stages, PFEDDST_STREAMS, dict(
-        affinity=lambda state: state.loss_matrix)
+        affinity=lambda state: state.loss_matrix,
+        versioned=hetero is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -315,11 +346,8 @@ def _pfeddst_spec(cfg, fl, steps_per_epoch: int, name: str, device):
 def make_strategy(name: str, cfg, fl, steps_per_epoch: int = 2, *,
                   device="cuda") -> Strategy:
     """The strategy `name` on `device` (default CUDA; raises without it),
-    with the comms fabric of `fl.comms` on the same device."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"strategy {name!r} is not ported yet (ROADMAP queue 1 item "
-            f"{NOT_PORTED[name]})")
+    with the comms fabric of `fl.comms` on the same device (its links
+    scaled by a `device_profile`'s channel rates)."""
     if name not in STRATEGIES:
         raise KeyError(f"unknown strategy {name!r}; available: {STRATEGIES}")
     for field, item in NOT_PORTED_FIELDS.items():
@@ -327,23 +355,19 @@ def make_strategy(name: str, cfg, fl, steps_per_epoch: int = 2, *,
             raise NotImplementedError(
                 f"FLConfig.{field} is not ported yet (ROADMAP queue 1 item "
                 f"{item})")
-    if (fl.comms is not None and fl.comms.stale_mode == "serve"
-            and fl.comms.p_stale > 0):
-        # the reference warns and lets stale peers serve live parameters;
-        # only a versioned strategy (pfeddst_async) honours the lag
-        raise NotImplementedError(
-            f"CommsConfig(stale_mode='serve', p_stale={fl.comms.p_stale}) "
-            f"needs a versioned strategy; {name!r} is not one and "
-            "pfeddst_async is not ported yet (ROADMAP queue 1 item 9). Use "
-            "stale_mode='drop'")
     device = resolve_device(device)
     spec = (_central_spec if name in CENTRAL else
             _gossip_spec if name in GOSSIP else _pfeddst_spec)
     init, stages, streams, meta = spec(cfg, fl, steps_per_epoch, name,
                                        device)
     affinity = meta.pop("affinity", None)
+    # deterministic in (profile, M): the hetero runtime and the simulator
+    # derive the same vectors from the same inputs
+    rates = (None if fl.device_profile is None else
+             sample_device_vectors(fl.device_profile,
+                                   fl.num_clients).channel_rate)
     fabric = make_fabric(fl.comms, fl.num_clients, cost_scale=fl.comm_cost,
-                         device=device)
+                         channel_rate=rates, device=device)
     pattern = meta.get("comm_pattern", "p2p")
     if hasattr(fabric, "round_slots") and pattern != "p2p":
         raise ValueError(
@@ -351,6 +375,26 @@ def make_strategy(name: str, cfg, fl, steps_per_epoch: int = 2, *,
             f"strategy {name!r} uses comm_pattern={pattern!r}. Centralized "
             "baselines need the dense fabric (sparse=False) for star "
             "accounting.")
+    if not meta.get("versioned"):
+        # the reference's warnings: only a versioned strategy honours a
+        # staleness lag, and only pfeddst_async runs the deadline gate
+        if (fl.comms is not None and fl.comms.stale_mode == "serve"
+                and fl.comms.p_stale > 0):
+            warnings.warn(
+                f"CommsConfig(stale_mode='serve', p_stale="
+                f"{fl.comms.p_stale}) with non-versioned strategy "
+                f"{name!r}: stale peers stay selectable but serve their "
+                "LIVE parameters (no peer store); staleness events will "
+                "not affect the optimization. Use 'pfeddst_async' or "
+                "stale_mode='drop' for real staleness semantics.",
+                stacklevel=2)
+        if 0 < fl.deadline_s < math.inf:
+            warnings.warn(
+                f"FLConfig(deadline_s={fl.deadline_s}) is ignored by "
+                f"non-versioned strategy {name!r}: only 'pfeddst_async' "
+                "runs the semi-async deadline gate; this strategy runs "
+                "fully synchronous rounds.",
+                stacklevel=2)
 
     def round_fn(state, data, key, draws=None):
         return run_round(stages, state, data, key, m=fl.num_clients,
@@ -363,7 +407,7 @@ def make_strategy(name: str, cfg, fl, steps_per_epoch: int = 2, *,
                     params_for_eval=(_pfeddst_params if spec is _pfeddst_spec
                                      else _dict_params),
                     fabric=fabric, stages=stages, key_streams=streams,
-                    **meta)
+                    affinity=affinity, **meta)
 
 
 def _dict_params(state):

@@ -1,17 +1,44 @@
-"""Host-side stage timing with a first/steady split (reference
-`repro.obs.timers.StageTimes`).
+"""Host-side stage timing with a compile/steady split — reference
+`repro.obs.timers`.
 
-The clock is the host's; PyTorch queues CUDA work asynchronously, so a
-caller that times device work ends the timed block with
-`torch.cuda.synchronize()` (where the reference calls
-`block_until_ready`). The rest of the reference's `obs` is ROADMAP queue 1
-item 10.
+PyTorch queues CUDA work asynchronously, so a host clock attributes
+device time to whichever call happens to wait. These helpers make the
+attribution explicit, with `torch.cuda.synchronize(device)` as the fence
+where the reference calls `block_until_ready` (on the CPU nothing is
+queued and the fence is a no-op):
+
+* `StageTimes` — per-label walls, the FIRST call (kernel builds, cuBLAS
+  and allocator warm-up, cuDNN autotuning) apart from the steady mean.
+* `instrument_stages` — wraps engine stages with fences, timing and a
+  profiler span each, so a round attributes host wall to its stages.
+* `RoundClock` — the whole-round variant `run_experiment` threads
+  through: round 0's wall lands in `compile_s`, later rounds in
+  `steady_s`.
+* `annotate` — a `torch.profiler.record_function` span; the engine puts
+  one around every stage (`stage:<name>`), so a torch.profiler trace
+  groups a round's kernels by stage.
 """
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+
+import torch
+
+
+def stage_name(stage) -> str:
+    """Display name of an engine stage: its `stage_name` attribute, else
+    its function name."""
+    return getattr(stage, "stage_name", getattr(stage, "__name__", "stage"))
+
+
+@contextmanager
+def annotate(name: str):
+    """A profiler span (`torch.profiler.record_function`) around a block;
+    inert unless a profiler is recording."""
+    with torch.profiler.record_function(name):
+        yield
 
 
 @dataclass
@@ -52,3 +79,67 @@ class StageTimes:
                 "calls": 1 + len(steady),
             }
         return out
+
+
+def fence(device):
+    """Wait for the work queued on `device` (a CUDA card); nothing on the
+    CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def instrument_stages(stages, times: StageTimes):
+    """Wrap each engine stage with fences, timing and a profiler span.
+
+    Returns a stage tuple for `engine.run_round`. Each wrapped stage
+    fences the round's device (`ctx.active`'s) before starting its clock
+    and after the stage returns, so queued work of stage N cannot leak
+    into stage N+1's wall. The fences serialise host and device: a
+    profiled round is slower than a plain one."""
+
+    def wrap(stage):
+        name = stage_name(stage)
+
+        def timed(state, ctx):
+            device = ctx.active.device
+            fence(device)
+            t0 = time.perf_counter()
+            with annotate(f"stage:{name}"):
+                out = stage(state, ctx)
+            fence(device)
+            times.add(name, time.perf_counter() - t0)
+            return out
+
+        timed.stage_name = name
+        return timed
+
+    return tuple(wrap(s) for s in stages)
+
+
+@dataclass
+class RoundClock:
+    """Whole-round wall clock with the round-0 compile split: the first
+    `round()` context's wall lands in `compile_s`, every later one
+    accumulates into `steady_s`; `elapsed()` is the steady wall only;
+    `last_s` is the latest round's wall. The caller fences inside the
+    context. (The reference's `chunk(n)` belongs to its chunked scan
+    path, not ported: ROADMAP queue 1 item 6.)"""
+    compile_s: float = 0.0
+    steady_s: float = 0.0
+    rounds: int = 0
+    last_s: float = 0.0
+
+    @contextmanager
+    def round(self):
+        t0 = time.perf_counter()
+        yield
+        self.last_s = time.perf_counter() - t0
+        if self.rounds == 0:
+            self.compile_s = self.last_s
+        else:
+            self.steady_s += self.last_s
+        self.rounds += 1
+
+    def elapsed(self) -> float:
+        return self.steady_s

@@ -16,7 +16,10 @@ import torch
 
 
 def tree_map(fn, tree, *rest):
-    """Apply `fn` leaf-wise over matching dict/list/tuple structures."""
+    """Apply `fn` leaf-wise over matching dict/list/tuple structures; None
+    is an empty tree, as in jax (a state without a peer store)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}

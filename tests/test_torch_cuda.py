@@ -689,3 +689,142 @@ def test_fabric_rounds_on_card_agree_with_cpu(cuda, name):
         scale = float(want.abs().max())
         torch.testing.assert_close(got.cpu(), want, rtol=1e-3,
                                    atol=max(1e-4, 1e-3 * scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 4])
+def test_peer_store_serve_and_publish_on_card_bitwise_equal_cpu(cuda, depth):
+    """The versioned peer store on CUDA tensors (bf16 and f32 leaves, the
+    paper's dtypes and the parity tests'): eight rounds of publishes and
+    serves with event lags up to 6 (clipped to V − 1), from round 0 (slot
+    −1 mod V) through ring wraparounds, bitwise equal to the same store
+    on the CPU; the slots are written in place."""
+    from repro_torch.fl import hetero
+
+    m = 16
+    g = torch.Generator().manual_seed(depth)
+
+    def tree():
+        return {"e": {"w": torch.randn(m, 3, 3, 8, generator=g).to(
+                    torch.bfloat16)},
+                "h": {"b": torch.randn(m, 10, generator=g)}}
+
+    def on_card(t):
+        return {k: {n: x.to(cuda) for n, x in d.items()}
+                for k, d in t.items()}
+
+    first = tree()
+    cpu = hetero.init_peer_store(first, depth)
+    gpu = hetero.init_peer_store(on_card(first), depth)
+    slots = gpu.params["e"]["w"]
+
+    def same(a, b):
+        a, b = a.cpu(), b
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        return torch.equal(a, b)
+
+    for rnd in range(8):
+        lag = torch.randint(0, 7, (m,), generator=g, dtype=torch.int32)
+        for ev in (None, lag):
+            cs, ca = hetero.store_serve(cpu, rnd, ev)
+            gs, ga = hetero.store_serve(gpu, rnd, None if ev is None
+                                        else ev.to(cuda))
+            assert torch.equal(ga.cpu(), ca)
+            for k in cs:
+                for n in cs[k]:
+                    assert same(gs[k][n], cs[k][n]), (rnd, k, n)
+        new = tree()
+        fresh = torch.rand(m, generator=g) < 0.5
+        blocked = ~fresh & (torch.rand(m, generator=g) < 0.5)
+        cpu = hetero.store_publish(cpu, new, fresh, blocked, rnd)
+        gpu = hetero.store_publish(gpu, on_card(new), fresh.to(cuda),
+                                   blocked.to(cuda), rnd)
+        assert gpu.params["e"]["w"] is slots
+        assert torch.equal(gpu.pub_round.cpu(), cpu.pub_round)
+        assert torch.equal(gpu.lag.cpu(), cpu.lag)
+        for k in cpu.params:
+            for n in cpu.params[k]:
+                assert same(gpu.params[k][n], cpu.params[k][n])
+
+
+@pytest.mark.cuda
+def test_async_rounds_launch_select_topk_on_served_headers(cuda,
+                                                           monkeypatch):
+    """Two pfeddst_async rounds (bimodal profile, 1 s deadline, a ring
+    with staleness events served from the store) on the card and on the
+    CPU from the same state and keys: select_topk launched once a round
+    on the card, given the served headers (the live rows of this round's
+    participants, the store's slots for the others), the candidate mask
+    and the cost matrix; masks, active sets and the store's counters
+    exact, the loss matrix within rtol 1e-3."""
+    import dataclasses
+
+    from repro_torch.configs import (CommsConfig, DeviceProfile, FLConfig,
+                                     get_config)
+    from repro_torch.core.scoring import flatten_headers
+    from repro_torch.data.synthetic import client_datasets_cifar
+    from repro_torch.fl import hetero
+    from repro_torch.fl.engine import where_tree
+    from repro_torch.fl.strategies import make_strategy
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = dataclasses.replace(get_config("resnet18-cifar").reduced(),
+                              dtype="float32", image_size=8, cnn_width=32)
+    data = client_datasets_cifar(1, 6, samples_per_class=20, image_size=8)
+    train = {"images": data["train_x"], "labels": data["train_y"]}
+    fl = FLConfig(num_clients=6, peers_per_round=2, batch_size=8,
+                  client_sample_ratio=0.5, epochs_extractor=1,
+                  epochs_header=1, probe_size=4, use_score_kernel=True,
+                  device_profile=DeviceProfile(family="bimodal",
+                                               straggler_fraction=0.5),
+                  deadline_s=1.0,
+                  comms=CommsConfig(topology="ring", ring_hops=2,
+                                    link_model="hetero", p_stale=0.4,
+                                    stale_mode="serve"))
+    cpu = make_strategy("pfeddst_async", cfg, fl, 1, device="cpu")
+    gpu = make_strategy("pfeddst_async", cfg, fl, 1, device=cuda)
+    cpu_state = cpu.init(3)
+    fields = cpu_state._asdict()
+    store = fields.pop("store")
+
+    def move(t):
+        return t.to(cuda) if t.dim() else t.clone()
+
+    gpu_state = type(cpu_state)(
+        **{k: tree_map(move, v) for k, v in fields.items()},
+        store=hetero.PeerStore(*(tree_map(move, v) for v in store)))
+    gpu_train = {k: v.to(cuda) for k, v in train.items()}
+    calls = []
+    original = ops.select_topk
+
+    def spy(x, last, s_l, t, cost, cand=None, **kw):
+        if x.is_cuda:
+            calls.append((x.clone(), isinstance(cost, torch.Tensor)
+                          and cost.dim() == 2, cand is not None))
+        return original(x, last, s_l, t, cost, cand, **kw)
+
+    monkeypatch.setattr(ops, "select_topk", spy)
+    ops.reset_launch_counts()
+    for r in range(2):
+        # the round writes its store in place: keep the ring it serves from
+        before = gpu_state
+        ring = hetero.PeerStore(*(tree_map(torch.clone, v)
+                                  for v in gpu_state.store))
+        cpu_state, cm = cpu.round(cpu_state, train, (7, r))
+        gpu_state, gm = gpu.round(gpu_state, gpu_train, (7, r))
+        for k in ("active", "select_mask", "stale"):
+            assert torch.equal(cm[k], gm[k].cpu()), k
+        assert ops.launch_counts()["select_topk"] == r + 1
+        x, matrix_cost, cand = calls[-1]
+        assert matrix_cost and cand
+        served, _ = hetero.store_serve(ring, int(before.round), gm["stale"])
+        view = where_tree(gm["active"], before.header, served["h"])
+        assert torch.equal(x, flatten_headers(view))
+        assert torch.equal(gpu_state.store.lag.cpu(), cpu_state.store.lag)
+        assert torch.equal(gpu_state.store.pub_round.cpu(),
+                           cpu_state.store.pub_round)
+        want = cpu_state.loss_matrix
+        torch.testing.assert_close(
+            gpu_state.loss_matrix.cpu(), want, rtol=1e-3,
+            atol=max(1e-4, 1e-3 * float(want.abs().max())))

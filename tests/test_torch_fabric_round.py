@@ -492,26 +492,47 @@ def test_gather_neighbors_views_each_neighbourhood():
 @pytest.mark.parametrize("refusal", ["sparse_star", "serve", "device_profile",
                                      "threat"])
 def test_refusals(refusal):
-    """The reference's refusal of a packed fabric with a star strategy;
-    stale_mode="serve" with p_stale > 0 (the reference warns: a
-    non-versioned strategy would serve live parameters; the port refuses
-    until pfeddst_async, item 9, is ported); and the fields of layers not
-    ported (items 9 and 11)."""
+    """The reference's refusal of a packed fabric with a star strategy and
+    the field of a layer not ported (threat, item 11). Since the
+    semi-async layer's port, stale_mode="serve" with p_stale > 0 and a
+    device profile are accepted as in the reference: a non-versioned
+    strategy warns that stale peers serve live parameters
+    (tests/test_torch_async_round.py holds the text to the reference's),
+    and the packed fabric refuses a profile's channel rates."""
+    import warnings
+
+    from repro_torch.configs import DeviceProfile
+
     cfg = get_config("resnet18-cifar").reduced()
-    name, err, match, kw = {
-        "sparse_star": ("fedavg", ValueError, "sparse",
-                        dict(comms=CommsConfig(topology="ring",
-                                               sparse=True))),
-        "serve": ("dfedavgm", NotImplementedError, "item 9",
-                  dict(comms=CommsConfig(stale_mode="serve", p_stale=0.1))),
-        "device_profile": ("pfeddst", NotImplementedError, "item 9",
-                           dict(device_profile=object())),
-        "threat": ("dispfl", NotImplementedError, "item 11",
-                   dict(threat=object())),
-    }[refusal]
-    with pytest.raises(err, match=match):
-        strategies.make_strategy(name, cfg, FLConfig(num_clients=6, **kw),
-                                 device="cpu")
+    if refusal == "serve":
+        fl = FLConfig(num_clients=6, comms=CommsConfig(stale_mode="serve",
+                                                       p_stale=0.1))
+        with pytest.warns(UserWarning, match="LIVE parameters"):
+            strategies.make_strategy("dfedavgm", cfg, fl, device="cpu")
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            strategies.make_strategy("pfeddst_async", cfg, fl, device="cpu")
+    elif refusal == "device_profile":
+        prof = DeviceProfile(family="bimodal")
+        strategies.make_strategy("pfeddst", cfg, FLConfig(
+            num_clients=6, device_profile=prof), device="cpu")
+        with pytest.raises(NotImplementedError, match="channel_rate"):
+            strategies.make_strategy("pfeddst", cfg, FLConfig(
+                num_clients=6, device_profile=prof,
+                comms=CommsConfig(topology="ring", sparse=True)),
+                device="cpu")
+    else:
+        name, err, match, kw = {
+            "sparse_star": ("fedavg", ValueError, "sparse",
+                            dict(comms=CommsConfig(topology="ring",
+                                                   sparse=True))),
+            "threat": ("dispfl", NotImplementedError, "item 11",
+                       dict(threat=object())),
+        }[refusal]
+        with pytest.raises(err, match=match):
+            strategies.make_strategy(name, cfg, FLConfig(num_clients=6,
+                                                         **kw),
+                                     device="cpu")
     # serve mode without staleness events is accepted (nothing is stale)
     strategies.make_strategy("dfedavgm", cfg, FLConfig(
         num_clients=6, comms=CommsConfig(stale_mode="serve")), device="cpu")

@@ -225,13 +225,20 @@ def test_entry_point_without_device_needs_cuda(setup, monkeypatch, entry):
 
 
 def test_unported_options_raise():
+    """The open-world layer (queue 1 item 11) is still refused, by every
+    strategy, pfeddst_async included; the semi-async layer (item 9) is
+    not any more."""
     from repro_torch.fl.strategies import make_strategy
 
     cfg = get_config("resnet18-cifar").reduced()
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        make_strategy("pfeddst_async", cfg, FLConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        make_pfeddst_stages(cfg, FLConfig(), None, hetero=object())
+    for name in ("pfeddst", "pfeddst_async"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+            make_strategy(name, cfg, FLConfig(num_clients=4,
+                                              threat=object()),
+                          device="cpu")
+    strat = make_strategy("pfeddst_async", cfg, FLConfig(num_clients=4),
+                          device="cpu")
+    assert strat.versioned and len(strat.stages) == 7
 
 
 ROOT = Path(__file__).resolve().parent.parent
