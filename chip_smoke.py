@@ -62,7 +62,11 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             ragged lengths, a window, a q_offset, not causal) in f32
             (within 1e-5·max(1, max|out|)), bf16 and f16 (within one ulp of
             the dtype); the prefill_32k shape (1, 32768, 12/2, 128), kernel
-            and library times only).
+            and library times only; recurrentgemma-2b's attention, q (1,
+            4096, 10, 256), k/v (1, 4096, 1, 256) bf16, causal, window 2048
+            (the hd-256 instance), within one bf16 ulp, SDPA with the window
+            as a mask beside it; an f32 ragged case at hd 96, zero-padded to
+            the hd-128 instance, within 1e-5·max(1, max|out|)).
             wkv_chunked, its two kernels (state pass, output pass) per call
             (rwkv6-7b prefill: B=4, S=4096, H=64, hd=64, r/k/v bf16,
             w = exp(−exp(U[−6, −1])) f32: one bf16 ulp; an f32 case with
@@ -169,11 +173,52 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             the trace passes the port's `validate_trace` (the card
             machine has no jax), its device walls equal History's; the
             stage profile (first and steady ms of each stage) is printed.
+8. open     the open world (`repro_torch.openworld`) and checkpoints, at
+   world    the settings of phase 3, the launch counters set to 0 before
+            each run. (a) identity: make_open_spec returns the very stage
+            objects for inert ThreatConfig() / ChurnConfig(); a churn that
+            keeps every slot alive (init_alive 0.99) and a gaussian attack
+            of std 0 wrap pfeddst and equal plain pfeddst over 3 rounds
+            (deterministic algorithms, as in phase 7 (a)). (b) pfeddst
+            under sign_flip with score gaming ("both") and the median
+            defense, 3 rounds, each checked against the host: the cast is
+            adversary_mask(16, 0.25, 0); select_topk gets the (M, M) cost
+            (adversary columns max(c)·cost_gain, the rest the fabric's) and
+            the spoofed header rows (−mean of the honest rows); the
+            snapshot is untouched until the corruption; the byzantine rows
+            are pre − scale·(post − pre) and the honest rows pass through,
+            bitwise; the card's median aggregate equals the CPU's on the
+            same tensors bitwise (the first 32768 columns of every leaf);
+            adv_edge_frac, adv_base_frac and adv_isolation equal a float32
+            numpy recomputation. Then one round each with trimmed_mean
+            (rtol 1e-6 of the CPU) and norm_clip; the aggregate's ms and
+            peak memory above its inputs are printed. (c) dfedavgm under
+            the scale attack on a ring (packed plan), 2 rounds: gossip_mix
+            once a round with no defense, never under trimmed_mean (the
+            robust mixer runs instead). (d) churn (join 0.3, leave 0.2,
+            half alive): pfeddst 4 rounds — select_topk given the churn
+            candidate mask every round, no dead client selects or is
+            selected, joined rows bootstrapped from the pre-churn alive
+            mean bitwise with optimizer rows 0, loss row 0, recency −1, the
+            telemetry equal to the masks' counts; dispfl 3 rounds —
+            mask_evolve once a round over all 56 leaves; then
+            `run_experiment` under the attack and churn with eval_mask =
+            the honest cast and a trace (chiprun_out/
+            chip_smoke_openworld_trace.jsonl): the selection graph names
+            the adversaries, `validate_trace` passes. (e) checkpoints: (b)'s
+            population after 2 rounds saved and restored on the card
+            bitwise (file bytes, save and restore s); `launch/serve.py
+            --ckpt-dir` for qwen2-1.5b at full width in bf16 (batch 4,
+            prompt 512, 16 tokens, 1 request) serves the saved
+            parameters' greedy tokens. The checkpoints go to the
+            gitignored `.smoke_ckpt/` (GBs) and are removed.
 
 Output: each phase's wall, the card's name and power limit (nvidia-smi),
 one `kernels` JSON line (`launches` from phase 3's run of the kernel's
 path, `launches_fabric` from each phase-6 run, select_topk's
-`launches_async` from phase 7 (b); mask_evolve's count calls,
+`launches_async` from phase 7 (b); `launches_openworld` of select_topk,
+gossip_mix and mask_evolve from each phase-8 run; flash's `hd256` row
+from phase 2; mask_evolve's count calls,
 each of 3–5 kernel launches, and its row also gives the leaves those
 calls covered and the whole stage's time and device time; select_topk's
 times are those of the M=16 case with the cost matrix and candidate mask
@@ -744,18 +789,30 @@ def check_flash(ops, ref, case, dtype, dev, iters, *, plain=True,
     if library:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        row["library_ms"] = time_ms(
-            lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True),
-            iters, warmup=1)
+        if window or q_offset:      # SDPA's is_causal has no window
+            mask = ref.attention_mask(sq, skv, causal=causal, window=window,
+                                      q_offset=q_offset, device=dev)
+            row["library_ms"] = time_ms(
+                lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                iters, warmup=1)
+        else:
+            row["library_ms"] = time_ms(
+                lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True),
+                iters, warmup=1)
     flops = 4.0 * b * h * hd * visible_pairs(sq, skv, **kw)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     peak = FP32_FLOPS if dtype == torch.float32 else TENSOR_16BIT_FLOPS
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peak)
     row["fp32_ffma_bound_ms"], _ = bound(nbytes, flops, FP32_FLOPS)
     row["tflops"] = flops / row["ms"] / 1e9
+    inst = fa.padded_head_dim(hd)
+    row["kernel_head_dim"] = inst
     if row["route"] == "wgmma":
-        # what the tensor cores do: S = Q·Kᵀ once, P·V twice (hi and lo)
-        row["tflops_tensor_work"] = 1.5 * row["tflops"]
+        # what the tensor cores do: S = Q·Kᵀ once (twice at hd 256, one
+        # per warpgroup), P·V twice (hi and lo), at the instance's hd
+        qk = 2 if inst > 128 else 1
+        row["tflops_tensor_work"] = (qk * 2 + 4) * inst / (4 * hd) * \
+            row["tflops"]
     return row
 
 
@@ -1897,6 +1954,640 @@ def async_phase(cfg, fl, data, dev, run_experiment, ops) -> dict:
                 stage_profile=profile)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the open world and checkpoints
+# ---------------------------------------------------------------------------
+
+OW_ATTACK = dict(adversary_fraction=0.25, attack="sign_flip",
+                 score_game="both")
+OW_CHURN = dict(join_rate=0.3, leave_rate=0.2, init_alive=0.5)
+# columns of each leaf on which the CPU recomputes the card's robust
+# aggregate (each coordinate's order statistic is independent)
+OW_CPU_COLUMNS = 32768
+# phase 8's checkpoints (GBs: too large for chiprun_out); gitignored and
+# removed after use
+CKPT_DIR = ROOT / ".smoke_ckpt"
+
+
+def observe(stages, name, before=None, after=None):
+    """The stages with the one named `name` wrapped: `before(state, ctx)`
+    runs first, its result goes to `after(token, out, ctx)`, which runs
+    on the stage's output; the stage keeps its name."""
+    from repro_torch.obs.timers import stage_name
+
+    out, hit = [], False
+    for stage in stages:
+        if stage_name(stage) != name:
+            out.append(stage)
+            continue
+        hit = True
+
+        def wrapped(state, ctx, _stage=stage):
+            token = before(state, ctx) if before else None
+            new = _stage(state, ctx)
+            if after:
+                after(token, new, ctx)
+            return new
+
+        wrapped.stage_name = name
+        out.append(wrapped)
+    if not hit:
+        raise AssertionError(f"no stage named {name!r}")
+    return tuple(out)
+
+
+def drive(strat, stages, fl, train, rounds, seed=0, on_round=None):
+    """`rounds` rounds of `stages` (the strategy's, some observed) as its
+    own `round` runs them; → (state, metrics of each round)."""
+    from repro_torch.fl.engine import run_round
+
+    state, mets = strat.init(seed), []
+    for r in range(rounds):
+        aff = None if strat.affinity is None else strat.affinity(state)
+        state, met = run_round(stages, state, train, (seed, r),
+                               m=fl.num_clients,
+                               ratio=fl.client_sample_ratio,
+                               key_streams=strat.key_streams,
+                               fabric=strat.fabric, affinity=aff)
+        mets.append(met)
+        if on_round is not None:
+            on_round(r, met)
+    return state, mets
+
+
+def _same(a, b) -> bool:
+    """Two tensors bit for bit (bf16 through its int16 view)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return bool(torch.equal(a, b))
+
+
+def _state_fields(state) -> dict:
+    """A pfeddst state's (plain or wrapped) compared fields."""
+    inner = state["inner"] if isinstance(state, dict) else state
+    return {"extractor": inner.extractor, "header": inner.header,
+            "loss_matrix": {"l": inner.loss_matrix},
+            "last_selected": {"t": inner.last_selected}}
+
+
+def check_open_identity(cfg, fl, train, dev, rounds=3) -> dict:
+    """Phase 8 (a): inert configs return the unwrapped stage objects; the
+    wrapping zero-rate churn (init_alive 0.99: every slot alive) and the
+    std-0 gaussian attack run `rounds` pfeddst rounds against plain
+    pfeddst from the same seed under deterministic algorithms (as phase 7
+    (a)): masks equal every round, the state bitwise equal at the end (or
+    within the spread of two plain runs)."""
+    import warnings
+
+    import torch
+
+    from repro_torch.configs import ChurnConfig, ThreatConfig
+    from repro_torch.fl import strategies
+    from repro_torch.obs.timers import stage_name
+    from repro_torch.openworld import make_open_spec
+
+    inert = dataclasses.replace(fl, threat=ThreatConfig(),
+                                churn=ChurnConfig())
+    init, stages, _, meta = strategies._pfeddst_spec(cfg, inert, 2,
+                                                     "pfeddst", dev)
+    got = make_open_spec(init, stages, meta, inert, device=dev)
+    if not (got[0] is init and got[1] is stages and got[2] is meta):
+        raise AssertionError("open world: inert configs wrapped the stages")
+    plain_names = [stage_name(s) for s in strategies.make_strategy(
+        "pfeddst", cfg, fl, 2, device=dev).stages]
+    if [stage_name(s) for s in strategies.make_strategy(
+            "pfeddst", cfg, inert, 2, device=dev).stages] != plain_names:
+        raise AssertionError("open world: inert make_strategy stages")
+    wraps = {"churn": dataclasses.replace(
+                 fl, churn=ChurnConfig(init_alive=0.99)),
+             "gaussian_std0": dataclasses.replace(
+                 fl, threat=ThreatConfig(adversary_fraction=0.25,
+                                         attack="gaussian", noise_std=0.0))}
+
+    def run(fl_run):
+        strat = strategies.make_strategy("pfeddst", cfg, fl_run, 2,
+                                         device=dev)
+        state, masks = strat.init(0), []
+        for r in range(rounds):
+            state, met = strat.round(state, train, (0, r))
+            masks.append(met["select_mask"].cpu())
+        return state, masks, [stage_name(s) for s in strat.stages]
+
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        with warnings.catch_warnings(record=True):
+            warnings.simplefilter("always")
+            base, masks0, _ = run(fl)
+            outs = {k: run(v) for k, v in wraps.items()}
+            again, masks1, _ = run(fl)
+    finally:
+        torch.use_deterministic_algorithms(flags[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = flags[1:]
+    compare_masks("pfeddst against pfeddst", masks0, masks1)
+    spread = {f: _tree_diff(a, _state_fields(again)[f])
+              for f, a in _state_fields(base).items()}
+    result = dict(rounds=rounds, pfeddst_spread=spread)
+    for label, (state, masks, names) in outs.items():
+        if len(names) <= len(plain_names) or not isinstance(state, dict):
+            raise AssertionError(f"open world (a) {label}: not wrapped "
+                                 f"({names})")
+        if not bool(state["alive"].all()):
+            raise AssertionError(f"open world (a) {label}: a slot died")
+        compare_masks(f"open world (a) {label}", masks0, masks)
+        diff = {f: _tree_diff(a, _state_fields(state)[f])
+                for f, a in _state_fields(base).items()}
+        if any(diff[f] > spread[f] for f in diff):
+            raise AssertionError(f"open world (a) {label}: state differs "
+                                 f"by {diff}, two plain runs by {spread}")
+        result[label] = dict(stages=names, masks_equal=True,
+                             bitwise=all(v == 0.0 for v in diff.values()),
+                             max_abs_diff=diff)
+    return result
+
+
+def _numpy_isolation(edges, cand, adv, active):
+    """The isolation scalars in float32 numpy (the module's formulas)."""
+    import numpy as np
+
+    f32 = np.float32
+    honest = ~adv & active
+    sel = edges & honest[:, None]
+    frac = f32((sel & adv[None, :]).sum()) / max(f32(sel.sum()), f32(1))
+    reach = cand & honest[:, None]
+    base = f32((reach & adv[None, :]).sum()) / max(f32(reach.sum()), f32(1))
+    iso = f32(1) - frac / max(base, f32(1e-8)) if base > 0 else f32(0)
+    return {"adv_edge_frac": frac, "adv_base_frac": base,
+            "adv_isolation": iso}
+
+
+def run_attacked(cfg, fl, train, dev, ops, defense, rounds) -> dict:
+    """Phase 8 (b): pfeddst under sign_flip with score gaming ("both") and
+    `defense`, `rounds` rounds with the launch counters set to 0 just
+    before, each round checked against the host: the cast, select_topk's
+    (M, M) cost (adversary columns max(c)·cost_gain, the others the
+    fabric's) and spoofed headers, the snapshot untouched until the
+    corruption, the byzantine rows pre − scale·(post − pre) and the
+    honest rows passed through bitwise, the robust aggregate against the
+    CPU's on the same tensors (median bitwise, trimmed mean rtol 1e-6),
+    the isolation scalars against numpy. Times the aggregate and its
+    peak memory above its inputs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ThreatConfig
+    from repro_torch.core import rounds as rounds_mod
+    from repro_torch.core.scoring import flatten_headers
+    from repro_torch.fl.strategies import make_strategy
+    from repro_torch.openworld import adversary_mask
+    from repro_torch.openworld.lifecycle import population_params
+
+    fl_b = dataclasses.replace(fl, threat=ThreatConfig(**OW_ATTACK,
+                                                       defense=defense))
+    m = fl.num_clients
+    adv = adversary_mask(m, OW_ATTACK["adversary_fraction"], 0)
+    adv_t = torch.from_numpy(adv).to(dev)
+    strat = make_strategy("pfeddst", cfg, fl_b, 2, device=dev)
+    c = strat.fabric.cost
+    log = {"agg": [], "byz": [], "select": [], "cand": [], "header": []}
+
+    def threat_after(_, state, ctx):
+        if not np.array_equal(ctx.threat.adversaries.cpu().numpy(), adv):
+            raise AssertionError("open world (b): the cast is not "
+                                 "adversary_mask(16, 0.25, 0)")
+        return None
+
+    def score_before(state, ctx):
+        log["header"].append(flatten_headers(state["inner"].header))
+
+    def snap_after(_, state, ctx):
+        log["snap"] = {p: {n: t.clone() for n, t in part.items()}
+                       for p, part in ctx.aux["ow_pre"].items()}
+
+    def byz_before(state, ctx):
+        pre = ctx.aux["ow_pre"]
+        for p, part in pre.items():
+            for n, t in part.items():
+                if not _same(t, log["snap"][p][n]):
+                    raise AssertionError(f"open world (b): the snapshot's "
+                                         f"{p}/{n} changed before the "
+                                         "corruption")
+        return pre, population_params(state["inner"]), ctx.active.clone()
+
+    def byz_after(token, state, ctx):
+        pre, post, active = token
+        out = population_params(state["inner"])
+        hit = (adv_t & active).reshape(-1)
+        for p in ("e", "h"):
+            for n, q in post[p].items():
+                pf = pre[p][n].float()
+                want = (pf - fl_b.threat.attack_scale
+                        * (q.float() - pf)).to(q.dtype)
+                got = out[p][n]
+                if not (_same(got[hit], want[hit])
+                        and _same(got[~hit], q[~hit])):
+                    raise AssertionError(f"open world (b): byzantine rows "
+                                         f"of {p}/{n}")
+        log["byz"].append(int(hit.sum()))
+
+    def metrics_before(state, ctx):
+        log["cand"].append(ctx.cand.cpu().numpy())
+
+    stages = observe(strat.stages, "ow_threat", after=threat_after)
+    stages = observe(stages, "score_select", before=score_before)
+    stages = observe(stages, "ow_snapshot", after=snap_after)
+    stages = observe(stages, "ow_byzantine", before=byz_before,
+                     after=byz_after)
+    stages = observe(stages, "ow_metrics", before=metrics_before)
+
+    real_agg, real_sel = rounds_mod.robust_row_aggregate, ops.select_topk
+
+    def agg_spy(tree, edges, weights, m_, **kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = real_agg(tree, edges, weights, m_, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        err = 0.0
+        for n, x in tree.items():
+            cols = x.reshape(m_, -1)[:, :OW_CPU_COLUMNS]
+            want = real_agg({n: cols.cpu()}, edges.cpu(), weights.cpu(),
+                            m_, **kw)[n]
+            got = out[n].reshape(m_, -1)[:, :OW_CPU_COLUMNS].cpu()
+            if kw["defense"] == "median":
+                if not torch.equal(got, want):
+                    raise AssertionError(f"open world (b): median of {n} "
+                                         "differs from the CPU's")
+            elif kw["defense"] == "trimmed_mean":
+                if not torch.allclose(got.float(), want.float(), rtol=1e-6,
+                                      atol=0.0):
+                    raise AssertionError(f"open world (b): trimmed mean of "
+                                         f"{n} beyond rtol 1e-6 of the CPU")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+        log["agg"].append(dict(ms=ms, peak_above_inputs_bytes=peak,
+                               cpu_max_abs_diff=err))
+        return out
+
+    def sel_spy(x, last, s_l, t, cost, cand=None, **kw):
+        log["select"].append(dict(x=x, cost=cost, cand=cand))
+        return real_sel(x, last, s_l, t, cost, cand, **kw)
+
+    rounds_mod.robust_row_aggregate, ops.select_topk = agg_spy, sel_spy
+    ops.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        _, mets = drive(strat, stages, fl_b, train, rounds)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        rounds_mod.robust_row_aggregate, ops.select_topk = real_agg, real_sel
+    launches = ops.launch_counts()
+    if launches["select_topk"] != rounds or len(log["select"]) != rounds:
+        raise AssertionError(f"open world (b): select_topk {launches}")
+    if defense != "none" and len(log["agg"]) != rounds:
+        raise AssertionError("open world (b): the robust aggregate ran "
+                             f"{len(log['agg'])} times")
+    cmax = float(c.max())
+    iso = []
+    for r, met in enumerate(mets):
+        call = log["select"][r]
+        cost = call["cost"]
+        if not (isinstance(cost, torch.Tensor) and cost.shape == (m, m)
+                and call["cand"] is not None
+                and call["x"].device.type == torch.device(dev).type):
+            raise AssertionError(f"open world (b) round {r}: select_topk "
+                                 "was not given the (M, M) cost and mask")
+        if not (bool((cost[:, adv_t] == cmax * 1.0).all())
+                and torch.equal(cost[:, ~adv_t], c[:, ~adv_t].float())):
+            raise AssertionError(f"open world (b) round {r}: cost columns")
+        flat = log["header"][r]
+        x = call["x"]
+        honest = flat[~adv_t].double()
+        spoof = -(honest.sum(0) / honest.shape[0])
+        if not (torch.equal(x[~adv_t], flat[~adv_t]) and torch.allclose(
+                x[adv_t].double(), spoof.expand(int(adv.sum()), -1),
+                rtol=1e-5, atol=1e-6)):
+            raise AssertionError(f"open world (b) round {r}: spoofed "
+                                 "header rows")
+        want = _numpy_isolation(met["select_mask"].cpu().numpy(),
+                                log["cand"][r], adv,
+                                met["active"].cpu().numpy())
+        got = {k: float(met[k]) for k in want}
+        if any(got[k] != float(want[k]) for k in want):
+            raise AssertionError(f"open world (b) round {r}: isolation "
+                                 f"{got}, numpy {want}")
+        iso.append(got)
+    return dict(defense=defense, rounds=rounds, total_s=total,
+                launches=launches, byzantine_rows=log["byz"],
+                aggregate=log["agg"], isolation=iso,
+                adv_active_n=[int(met["adv_active_n"]) for met in mets])
+
+
+def run_gossip_attack(cfg, fl_base, train, dev, ops, defense,
+                      rounds=2) -> dict:
+    """Phase 8 (c): dfedavgm under the scale attack on a ring (the packed
+    plan, D = 3): with no defense gossip_mix mixes every round; under a
+    defense the robust mixer runs and gossip_mix never launches."""
+    from repro_torch.configs import CommsConfig, ThreatConfig
+    from repro_torch.fl.strategies import make_strategy
+    from repro_torch.openworld import defense as dmod
+
+    fl_c = dataclasses.replace(
+        fl_base, comms=CommsConfig(topology="ring"),
+        threat=ThreatConfig(adversary_fraction=0.25, attack="scale",
+                            attack_scale=2.0, defense=defense))
+    strat = make_strategy("dfedavgm", cfg, fl_c, 2, device=dev)
+    real = dmod.robust_row_aggregate
+    mixers = []
+
+    def spy(*args, **kw):
+        mixers.append(1)
+        return real(*args, **kw)
+
+    counts = []
+    dmod.robust_row_aggregate = spy
+    ops.reset_launch_counts()
+    try:
+        state = strat.init(0)
+        for r in range(rounds):
+            state, met = strat.round(state, train, (0, r))
+            counts.append(ops.launch_counts()["gossip_mix"])
+    finally:
+        dmod.robust_row_aggregate = real
+    per_round = [b - a for a, b in zip([0] + counts, counts)]
+    want = [0] * rounds if defense != "none" else [1] * rounds
+    if per_round != want or len(mixers) != (rounds if defense != "none"
+                                            else 0):
+        raise AssertionError(f"open world (c) {defense}: gossip_mix per "
+                             f"round {per_round}, robust mixer "
+                             f"{len(mixers)} times")
+    loss = float(met["train_loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"open world (c) {defense}: loss {loss}")
+    return dict(defense=defense, gossip_mix_per_round=per_round,
+                robust_mixer_calls=len(mixers), launches=ops.launch_counts(),
+                isolation=float(met["adv_isolation"]))
+
+
+def run_churn(cfg, fl, fl_base, train, dev, ops, n_leaves) -> dict:
+    """Phase 8 (d): pfeddst (4 rounds) and dispfl (3 rounds) under churn.
+    pfeddst: select_topk given the churn candidate mask every round, no
+    dead client selects or is selected, each joined row's parameters the
+    pre-churn alive rows' mean bitwise, its optimizer rows 0, loss row 0,
+    recency row −1, the telemetry the masks' counts. dispfl: mask_evolve
+    once a round over every leaf."""
+    from repro_torch.configs import ChurnConfig
+    from repro_torch.fl.strategies import make_strategy
+    from repro_torch.openworld import lifecycle
+
+    churn = ChurnConfig(**OW_CHURN)
+    fl_d = dataclasses.replace(fl, churn=churn)
+    strat = make_strategy("pfeddst", cfg, fl_d, 2, device=dev)
+    log = {"sel": [], "alive": [], "joined": []}
+
+    def churn_before(state, ctx):
+        return state["inner"], state["alive"].clone()
+
+    def churn_after(token, state, ctx):
+        inner0, alive0 = token
+        alive = state["alive"]
+        joined, left = alive & ~alive0, alive0 & ~alive
+        boot = lifecycle._mean_over_active(
+            lifecycle.population_params(inner0), alive0)
+        inner = state["inner"]
+        new = lifecycle.population_params(inner)
+        old = lifecycle.population_params(inner0)
+        for p in ("e", "h"):
+            for n, t in new[p].items():
+                if not (_same(t[joined], boot[p][n][joined])
+                        and _same(t[~joined], old[p][n][~joined])):
+                    raise AssertionError(f"open world (d): joined rows of "
+                                         f"{p}/{n}")
+        zero = all(not bool(t[joined].any()) for opt in
+                   (inner.opt_e, inner.opt_h) for t in opt["mu"].values())
+        if not (zero and not bool(inner.loss_matrix[joined].any())
+                and bool((inner.last_selected[joined] == -1).all())):
+            raise AssertionError("open world (d): joined rows not reset")
+        if (float(ctx.metrics["alive_frac"]) != float(alive.float().mean())
+                or int(ctx.metrics["joined_n"]) != int(joined.sum())
+                or int(ctx.metrics["left_n"]) != int(left.sum())):
+            raise AssertionError("open world (d): churn telemetry")
+        log["alive"].append(alive.clone())
+        log["joined"].append(int(joined.sum()))
+
+    real = ops.select_topk
+
+    def spy(x, last, s_l, t, cost, cand=None, **kw):
+        log["sel"].append(cand)
+        return real(x, last, s_l, t, cost, cand, **kw)
+
+    stages = observe(strat.stages, "ow_churn", before=churn_before,
+                     after=churn_after)
+    ops.select_topk = spy
+    ops.reset_launch_counts()
+    try:
+        _, mets = drive(strat, stages, fl_d, train, 4)
+    finally:
+        ops.select_topk = real
+    sel_launches = ops.launch_counts()["select_topk"]
+    for r, met in enumerate(mets):
+        alive, cand = log["alive"][r], log["sel"][r]
+        pair = alive[:, None] & alive[None, :]
+        if cand is None or bool((cand & ~pair).any()):
+            raise AssertionError(f"open world (d) round {r}: select_topk "
+                                 "not given the churn mask")
+        mask = met["select_mask"]
+        if bool(mask[~alive].any()) or bool(mask[:, ~alive].any()) or \
+                bool((met["active"] & ~alive).any()):
+            raise AssertionError(f"open world (d) round {r}: a dead client "
+                                 "selects or is selected")
+    if sel_launches != 4:
+        raise AssertionError(f"open world (d): select_topk {sel_launches}")
+    pfeddst = dict(rounds=4, alive=[int(a.sum()) for a in log["alive"]],
+                   joined=log["joined"], select_topk=sel_launches)
+
+    evolve = ops.KERNELS["mask_evolve"]
+    strat = make_strategy("dispfl", cfg, dataclasses.replace(
+        fl_base, churn=churn), 2, device=dev)
+    counts = []
+    ops.reset_launch_counts()
+    state = strat.init(0)
+    for r in range(3):
+        state, met = strat.round(state, train, (0, r))
+        counts.append((ops.launch_counts()["mask_evolve"], evolve.leaves))
+    calls = [b[0] - a[0] for a, b in zip([(0, 0)] + counts, counts)]
+    leaves = [b[1] - a[1] for a, b in zip([(0, 0)] + counts, counts)]
+    if set(calls) != {1} or set(leaves) != {n_leaves}:
+        raise AssertionError(f"open world (d) dispfl: mask_evolve calls "
+                             f"{calls} over {leaves} leaves")
+    return dict(pfeddst=pfeddst, dispfl=dict(
+        rounds=3, mask_evolve_calls=calls, leaves=leaves,
+        alive=int(state["alive"].sum())))
+
+
+def run_open_trace(cfg, fl, data, dev, run_experiment) -> dict:
+    """Phase 8 (d), last: `run_experiment` under the attack and churn with
+    `eval_mask` = the honest cast and a trace: the selection graph names
+    the adversaries, the port's `validate_trace` passes."""
+    import numpy as np
+
+    from repro_torch.configs import ChurnConfig, ThreatConfig
+    from repro_torch.obs.trace import validate_trace
+    from repro_torch.openworld import adversary_mask
+
+    fl_t = dataclasses.replace(fl, threat=ThreatConfig(**OW_ATTACK,
+                                                       defense="median"),
+                               churn=ChurnConfig(**OW_CHURN))
+    adv = adversary_mask(fl.num_clients, OW_ATTACK["adversary_fraction"], 0)
+    OUT_DIR.mkdir(exist_ok=True)
+    path = OUT_DIR / "chip_smoke_openworld_trace.jsonl"
+    hist = run_experiment("pfeddst", cfg, fl_t, data, num_rounds=2,
+                          eval_every=1, steps_per_epoch=2, seed=0,
+                          verbose=False, device=dev, trace=str(path),
+                          eval_mask=~adv)
+    records, errors = validate_trace(str(path))
+    if errors:
+        raise AssertionError(f"open world trace invalid: {errors[:5]}")
+    graph = next(r for r in records if r["type"] == "selection_graph")
+    if graph.get("adversaries") != [int(i) for i in np.flatnonzero(adv)]:
+        raise AssertionError(f"open world trace adversaries "
+                             f"{graph.get('adversaries')}")
+    if not all(math.isfinite(a) for a in hist.accuracy):
+        raise AssertionError(f"open world honest accuracy {hist.accuracy}")
+    return dict(records=len(records), adversaries=graph["adversaries"],
+                honest_accuracy=hist.accuracy,
+                adv_isolation=hist.extra["adv_isolation"],
+                alive_frac=hist.extra["alive_frac"])
+
+
+def check_checkpoints(cfg, fl, train, dev) -> dict:
+    """Phase 8 (e): (b)'s attacked population after 2 rounds saved with
+    `save_checkpoint` and restored on the card bitwise (file bytes, save
+    and restore seconds); then `launch/serve.py --ckpt-dir` for
+    qwen2-1.5b at full width in bf16 (batch 4, prompt 512, 16 tokens, 1
+    request): the restored parameters serve the greedy tokens of the
+    parameters they were saved from."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import ThreatConfig, get_config
+    from repro_torch.fl.strategies import make_strategy
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_mod
+    from repro_torch.utils.pytree import tree_paths
+
+    out = {}
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        fl_b = dataclasses.replace(fl, threat=ThreatConfig(
+            **OW_ATTACK, defense="median"))
+        strat = make_strategy("pfeddst", cfg, fl_b, 2, device=dev)
+        state = strat.init(0)
+        for r in range(2):
+            state, _ = strat.round(state, train, (0, r))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(str(CKPT_DIR / "population"), 2, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, manifest = load_checkpoint(path, like=state, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        pairs, want = tree_paths(restored), tree_paths(state)
+        if [p for p, _ in pairs] != [p for p, _ in want] or not all(
+                _same(a, b) for (_, a), (_, b) in zip(pairs, want)):
+            raise AssertionError("checkpoint: the restored population "
+                                 "differs")
+        out["population"] = dict(
+            leaves=len(pairs), file_bytes=Path(path).stat().st_size,
+            save_s=save_s, restore_s=load_s, step=manifest["step"])
+        del state, restored
+
+        qcfg = get_config("qwen2-1.5b")
+        params = model_mod.init_params(
+            qcfg, torch.Generator(device=dev).manual_seed(11), dev)
+        t0 = time.perf_counter()
+        qpath = save_checkpoint(str(CKPT_DIR / "qwen"), 1, params)
+        qsave = time.perf_counter() - t0
+        args = ["--arch", "qwen2-1.5b", "--batch", "4", "--prompt-len",
+                "512", "--gen", "16", "--requests", "1", "--seed", "0"]
+        real = model_mod.init_params
+        model_mod.init_params = lambda c, g, d: params
+        try:
+            want_tok = serve.main(args)
+        finally:
+            model_mod.init_params = real
+        del params
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got_tok = serve.main(args + ["--ckpt-dir", str(CKPT_DIR / "qwen")])
+        serve_s = time.perf_counter() - t0
+        if not torch.equal(got_tok, want_tok):
+            raise AssertionError("serve --ckpt-dir: the restored parameters "
+                                 "serve other tokens")
+        out["serve_qwen2"] = dict(file_bytes=Path(qpath).stat().st_size,
+                                  save_s=qsave, restore_and_serve_s=serve_s,
+                                  tokens_equal=True,
+                                  shape=list(got_tok.shape))
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def openworld_phase(cfg, fl, data, dev, run_experiment, ops,
+                    n_leaves) -> dict:
+    """Phase 8 (module docstring); prints its rows and returns the
+    open-world launches of select_topk, gossip_mix and mask_evolve."""
+    fl_base = dataclasses.replace(fl, lr=BASELINE_LR)
+    train = {"images": data["train_x"].to(dev),
+             "labels": data["train_y"].to(dev)}
+    ident = check_open_identity(cfg, fl, train, dev)
+    print("open world (a) identity: inert configs unwrapped; zero-rate "
+          "churn and std-0 gaussian = pfeddst", json.dumps(ident),
+          flush=True)
+    attacked = [run_attacked(cfg, fl, train, dev, ops, "median", 3),
+                run_attacked(cfg, fl, train, dev, ops, "trimmed_mean", 1),
+                run_attacked(cfg, fl, train, dev, ops, "norm_clip", 1)]
+    for row in attacked:
+        print(f"open world (b) attacked pfeddst, defense {row['defense']}",
+              json.dumps(row), flush=True)
+    gossip = [run_gossip_attack(cfg, fl_base, train, dev, ops, d)
+              for d in ("none", "trimmed_mean")]
+    for row in gossip:
+        print(f"open world (c) dfedavgm, defense {row['defense']}",
+              json.dumps(row), flush=True)
+    churn = run_churn(cfg, fl, fl_base, train, dev, ops, n_leaves)
+    print("open world (d) churn", json.dumps(churn), flush=True)
+    traced = run_open_trace(cfg, fl, data, dev, run_experiment)
+    print("open world (d) traced run", json.dumps(traced), flush=True)
+    ckpt = check_checkpoints(cfg, fl, train, dev)
+    print("open world (e) checkpoints", json.dumps(ckpt), flush=True)
+    return {
+        "select_topk": {f"attacked_{r['defense']}":
+                        r["launches"]["select_topk"] for r in attacked}
+        | {"churn": churn["pfeddst"]["select_topk"]},
+        "gossip_mix": {f"dfedavgm_{r['defense']}":
+                       r["launches"]["gossip_mix"] for r in gossip},
+        "mask_evolve": {"dispfl_churn": sum(
+            churn["dispfl"]["mask_evolve_calls"])},
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -2023,6 +2714,14 @@ def main() -> int:
     flashes.append(check_flash(ops, ref, (1, 32768, 32768, 12, 2, 128, True,
                                           0, 0), torch.bfloat16, dev, 3,
                                plain=False, library=True))
+    # head_dim 256: recurrentgemma-2b's attention (10 heads over 1 kv head,
+    # a 2048-token window), and an f32 ragged case at hd 96 (padded to 128)
+    flash_hd256 = check_flash(ops, ref, (1, 4096, 4096, 10, 1, 256, True,
+                                         2048, 0), torch.bfloat16, dev, 5,
+                              library=True)
+    flashes += [flash_hd256,
+                check_flash(ops, ref, (1, 777, 1300, 6, 2, 96, True, 300,
+                                       523), torch.float32, dev, 5)]
     for row in flashes:
         print("flash_attention", json.dumps(row), flush=True)
     wkvs = [check_wkv(ops, ref, 4, 4096, 64, torch.bfloat16, -1.0, False,
@@ -2163,6 +2862,13 @@ def main() -> int:
     walls["7 async"] = time.perf_counter() - t_phase
     print(f"phase 7 wall: {walls['7 async']:.1f} s", flush=True)
 
+    t_phase = time.perf_counter()
+    # ---- 8. the open world and checkpoints ----------------------------------
+    launches_ow = openworld_phase(cfg, fl, data, dev, run_experiment, ops,
+                                  n_leaves)
+    walls["8 openworld"] = time.perf_counter() - t_phase
+    print(f"phase 8 wall: {walls['8 openworld']:.1f} s", flush=True)
+
     # ---- output -------------------------------------------------------------
     k_main = main_sel[-1]
     assert k_main["matrix_cost"] and k_main["cand"]
@@ -2217,6 +2923,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:112",
          "routes": flash_routes,
          "launches": launches["flash_attention"],
+         "hd256": {k: flash_hd256[k] for k in (
+             "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")},
          "max_abs_err": flashes[0]["max_abs_err"],
          "ms": flashes[0]["ms"], "plain_ms": flashes[0]["plain_ms"],
          "bound_ms": flashes[0]["bound_ms"],
@@ -2238,6 +2947,9 @@ def main() -> int:
                                     launches_fabric.items()}
     kernels[0]["launches_async"] = \
         async_rows["stragglers"]["launches"]["select_topk"]
+    for entry in kernels:
+        if entry["name"] in launches_ow:
+            entry["launches_openworld"] = launches_ow[entry["name"]]
     print("round walls (s):", json.dumps(
         {r["name"]: r["round_walls_s"] for r in paths}), flush=True)
     print("serving (s, tokens/s):", json.dumps(

@@ -3,8 +3,9 @@ two LLMs whose serving path is ported (qwen2-1.5b, rwkv6-7b)."""
 from __future__ import annotations
 
 from repro_torch.configs import qwen2_1_5b, resnet18_cifar, rwkv6_7b
-from repro_torch.configs.base import (CommsConfig, DeviceProfile, FLConfig,
-                                      ModelConfig)
+from repro_torch.configs.base import (ChurnConfig, CommsConfig,
+                                      DeviceProfile, FLConfig, ModelConfig,
+                                      ThreatConfig)
 
 ARCH_REGISTRY: dict[str, ModelConfig] = {
     "qwen2-1.5b": qwen2_1_5b.CONFIG,
@@ -21,5 +22,5 @@ def get_config(name: str) -> ModelConfig:
     return ARCH_REGISTRY[name]
 
 
-__all__ = ["ARCH_REGISTRY", "CommsConfig", "DeviceProfile", "FLConfig",
-           "ModelConfig", "get_config"]
+__all__ = ["ARCH_REGISTRY", "ChurnConfig", "CommsConfig", "DeviceProfile",
+           "FLConfig", "ModelConfig", "ThreatConfig", "get_config"]

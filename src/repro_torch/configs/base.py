@@ -7,15 +7,14 @@ reference's MoE, MLA, hybrid, audio and vlm fields are not ported (ROADMAP
 queue 1 item 12). `FLConfig` keeps the Section III protocol and the
 network fabric (`CommsConfig`, `repro_torch.comms`), and the semi-async
 rounds' device model (`DeviceProfile`, `deadline_s`, `staleness_alpha`,
-`version_depth`; `repro_torch.fl.hetero`). Its `threat` field exists so
-that a config can ask for it, but `fl.strategies.make_strategy` refuses
-it: the open-world layer is not ported yet (ROADMAP queue 1 item 11).
+`version_depth`; `repro_torch.fl.hetero`), and the open world
+(`ThreatConfig`, `ChurnConfig`; `repro_torch.openworld`).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -172,6 +171,81 @@ class DeviceProfile:
 
 
 @dataclass(frozen=True)
+class ThreatConfig:
+    """Adversary model of open-world runs (`repro_torch.openworld`).
+
+    A fixed `adversary_fraction` of the population is adversarial
+    (deterministic in `seed`, so every driver — simulator, benches,
+    SelectionGraph annotation — sees the same set). Adversaries can
+    corrupt their local update (byzantine `attack`), game the Eq. 9 peer
+    score (`score_game`), or both; `defense` swaps the library
+    aggregation for a robust reducer. With every knob at its default
+    (`adversary_fraction=0`, attacks and defense "none") the strategy's
+    stages are returned unchanged, bit for bit the closed honest
+    population.
+    """
+    adversary_fraction: float = 0.0
+    # --- byzantine update corruption (applied after local training) --------
+    attack: str = "none"        # none | sign_flip | gaussian | scale
+    attack_scale: float = 1.0   # sign_flip / scale: delta multiplier
+    noise_std: float = 1.0      # gaussian: per-param noise stddev
+    # --- Eq. 9 score gaming -------------------------------------------------
+    # "header": publish an anti-aligned header so the Eq. 7 similarity
+    #   term (subtracted in Eq. 9) makes the adversary maximally
+    #   attractive; "cost": under-report the Eq. 9 link cost (claim the
+    #   best link in the fleet × cost_gain); "both": both.
+    score_game: str = "none"    # none | header | cost | both
+    cost_gain: float = 1.0      # cost gaming: claimed c = best link × gain
+    # --- robust aggregation (repro_torch.openworld.defense) ----------------
+    defense: str = "none"       # none | trimmed_mean | median | norm_clip
+    trim_fraction: float = 0.2  # trimmed_mean: fraction cut from each tail
+    clip_factor: float = 2.0    # norm_clip: allowed multiple of the median
+    seed: int = 0               # adversary-set sampling seed
+
+    def __post_init__(self):
+        if self.attack not in ("none", "sign_flip", "gaussian", "scale"):
+            raise ValueError(f"unknown attack {self.attack!r}")
+        if self.score_game not in ("none", "header", "cost", "both"):
+            raise ValueError(f"unknown score_game {self.score_game!r}")
+        if self.defense not in ("none", "trimmed_mean", "median",
+                                "norm_clip"):
+            raise ValueError(f"unknown defense {self.defense!r}")
+
+    @property
+    def inert(self) -> bool:
+        """True when no knob changes the round: the composition layer then
+        leaves the stages untouched (the bitwise guarantee)."""
+        return (self.adversary_fraction <= 0.0
+                or (self.attack == "none" and self.score_game == "none")) \
+            and self.defense == "none"
+
+
+@dataclass(frozen=True)
+class ChurnConfig:
+    """Client join/leave churn on the fixed-capacity (M,) population
+    (`repro_torch.openworld.lifecycle`).
+
+    Each round every alive client leaves w.p. `leave_rate` and every dead
+    slot joins w.p. `join_rate`; a round that would leave nobody alive
+    keeps the previous alive mask instead (the zero-alive guard).
+    Newcomers bootstrap from the alive peers' snapshots — the versioned
+    peer store's served versions on versioned strategies, live
+    parameters otherwise — and their optimizer state and PFedDST context
+    rows (loss l, recency t) reset. With both rates 0 and `init_alive=1.0`
+    the wrapped run is the closed population's, bit for bit.
+    """
+    join_rate: float = 0.0      # per-round P(dead slot joins)
+    leave_rate: float = 0.0     # per-round P(alive client leaves)
+    init_alive: float = 1.0     # fraction of slots alive at round 0 (≥1 slot)
+    seed: int = 0               # initial-alive sampling seed
+
+    @property
+    def inert(self) -> bool:
+        return (self.join_rate <= 0.0 and self.leave_rate <= 0.0
+                and self.init_alive >= 1.0)
+
+
+@dataclass(frozen=True)
 class FLConfig:
     num_clients: int = 100
     peers_per_round: int = 10          # |M_i|
@@ -213,5 +287,9 @@ class FLConfig:
     staleness_alpha: float = 0.5
     # ring depth V of pfeddst_async's versioned peer store
     version_depth: int = 4
-    # not ported: make_strategy refuses any value but None
-    threat: Optional[Any] = None           # ROADMAP queue 1 item 11
+    # --- open-world population (repro_torch.openworld) ---------------------
+    # None → closed honest population (the paper's world). Setting either
+    # wraps the strategy's stages (openworld.make_open_spec); inert configs
+    # (fraction 0, rates 0) leave them bitwise untouched.
+    threat: Optional[ThreatConfig] = None
+    churn: Optional[ChurnConfig] = None

@@ -17,8 +17,15 @@ The comms fabric reaches the round through the engine's context: the
 candidate mask `ctx.cand` restricts every selection mode (and the fused
 `select_topk` kernel), the Eq. 9 cost is `ctx.cost` (else the scalar
 `fl.comm_cost`), and a packed fabric's neighbour view `ctx.nbr` routes
-the top-k scoring through `score_topk_sparse`. Not ported yet: the
-threat/defense hooks (ROADMAP queue 1 item 11).
+the top-k scoring through `score_topk_sparse`.
+
+The open world (`repro_torch.openworld`) reaches it the same way: a
+threat cast in `ctx.threat` with a score game spoofs the header view and
+the cost matrix before both the fused and the dense branch (a threatened
+round on a packed fabric takes the dense branches), and
+`ThreatConfig.defense` replaces the extractor mix of `aggregate` with
+`robust_row_aggregate` over the selected peer set (over the served
+extractors under `hetero`).
 
 Passing a `fl.hetero.HeteroRuntime` (the `pfeddst_async` strategy) wraps
 the same stages with the deadline gate, serving from the versioned peer
@@ -71,6 +78,7 @@ from repro_torch.fl.hetero import (
     store_serve,
 )
 from repro_torch.models.split import merge_params
+from repro_torch.openworld.defense import robust_row_aggregate
 
 # stream layout of one PFedDST round (the reference's PFEDDST_STREAMS)
 PFEDDST_STREAMS = ("probe", "act", "e", "h", "rand")
@@ -93,6 +101,7 @@ def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
     appends the publish stage. The Eq. 6 rows evaluate the row client's
     own (always fresh) model and do not version. With a uniform profile
     and an infinite deadline every hetero operation is an identity."""
+    defense = fl.threat.defense if fl.threat is not None else "none"
 
     def score_select(state: PopulationState, ctx: RoundContext):
         # ---- 1. scoring — Eq. 6 restricted to the sampled rows ------------
@@ -126,13 +135,19 @@ def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
             header_view = served["h"]
         cost = fl.comm_cost if ctx.cost is None else ctx.cost
         flat = flatten_headers(header_view)
+        if ctx.threat is not None and ctx.threat.score_game != "none":
+            # score-integrity adversaries spoof the header and cost view
+            # the scorer sees (both branches below read them)
+            flat, cost = ctx.threat.game_scores(flat, cost, m)
         k = min(fl.peers_per_round, m - 1)
         fused = (use_score_kernel and m > 1 and fl.peers_per_round > 0
                  and fl.selection not in ("threshold", "random"))
         # a packed fabric's neighbour view: top-k over each row's D
         # neighbours, O(M·D·P), whatever use_score_kernel says
+        # a threatened round spoofs dense costs: it takes the dense branches
         packed = (ctx.nbr is not None and m > 1 and fl.peers_per_round > 0
-                  and fl.selection not in ("threshold", "random"))
+                  and fl.selection not in ("threshold", "random")
+                  and ctx.threat is None)
         fused = fused or packed   # both feed the metrics a top-k channel
         if fused:
             # ---- 1b/2. Eq. 7–9 + top-k: packed, or the fused kernel --------
@@ -212,7 +227,16 @@ def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
         # ---- 3. aggregate extractors --------------------------------------
         src_e = (ctx.aux["served"]["e"] if hetero is not None
                  else state.extractor)
-        agg_e = aggregate_extractors(src_e, ctx.plan.weights)
+        if defense != "none":
+            # robust aggregation over the selected peer set; norm_clip
+            # keeps the plan's weights (staleness discounts included), the
+            # order statistics aggregate the set uniformly
+            agg_e = robust_row_aggregate(
+                src_e, ctx.plan.edges, ctx.plan.weights, ctx.m,
+                defense=defense, trim=fl.threat.trim_fraction,
+                clip=fl.threat.clip_factor)
+        else:
+            agg_e = aggregate_extractors(src_e, ctx.plan.weights)
         ctx.aux["agg_e"] = where_tree(ctx.active, agg_e, state.extractor)
         return state
 

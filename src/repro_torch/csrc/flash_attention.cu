@@ -1,10 +1,15 @@
 // flash_attention: blocked online-softmax attention with causal and
 // sliding-window masks, a query offset and grouped-query heads.
 //
-//   out[b, q, h, :] = softmax_s(q·k[s]ᵀ / √hd  over the visible s) · v
+//   out[b, q, h, :] = softmax_s(q·k[s]ᵀ · scale  over the visible s) · v
 //   visible: s < Skv, causal → s ≤ q + q_offset,
 //            window > 0 → s > q + q_offset − window;
 //   query head h reads kv head h / (H / K).
+//
+// The kernels are instantiated at hd = 64, 128 and 256; the caller passes
+// the scale (1/√hd of the model's head dim), so a head dim between the
+// instances runs zero-padded to the next one: zero columns add exact zeros
+// to q·k and to P·V.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (Pallas body _flash_kernel). The TPU grid walks the kv
@@ -51,7 +56,13 @@
 //   (Overlapping a warpgroup's own softmax with its P·V needs a second P
 //   tile in registers; ptxas holds the consumers to 168 registers, the
 //   register file over 384 threads, whatever setmaxnreg asks, so that
-//   variant spilled and ran slower.) q tiles are scheduled longest first
+//   variant spilled and ran slower.) At hd = 256 O alone would take 128
+//   registers a thread, so there the two consumer warpgroups share one
+//   64-row q tile and each owns half of O's columns: both compute the
+//   same S and softmax (the same p, bit for bit), each multiplies P by its
+//   128-column half of V. S = Q·Kᵀ is done twice, a third more tensor
+//   work; K and V tiles are 32 KB each, the ring of 3 slots 192 KB.
+//   q tiles are scheduled longest first
 //   (the last q tile of every (b, h) leads the grid), so the causal
 //   triangle leaves no ragged last wave. m, l and O stay in f32; the
 //   output is O · (1 / max(l, 1e-30)), rounded once.
@@ -232,14 +243,13 @@ flash_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 int launch_ffma(const void* q, const void* k, const void* v, void* out,
                 int b, int sq, int skv, int h, int kh, int causal,
-                int window, int q_offset, cudaStream_t stream) {
+                int window, int q_offset, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<HD>() * sizeof(float);
   auto kernel = flash_ffma_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kTile - 1) / kTile, h, b);
-  const float scale = (float)(1.0 / sqrt((double)HD));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), sq, skv, h,
@@ -253,27 +263,39 @@ int launch_ffma(const void* q, const void* k, const void* v, void* out,
 
 namespace tc {
 
-constexpr int kConsumerWGs = 2;          // 64 q rows each
-constexpr int kBlockQ = 64 * kConsumerWGs;
+constexpr int kConsumerWGs = 2;          // 64 q rows each (hd ≤ 128)
 constexpr int kBlockKV = 64;
 constexpr int kStages = 3;               // slots of the K/V ring
 constexpr int kThreads = 128 * kConsumerWGs + 32;  // + one producer warp
 constexpr int kPanelBytes = 64 * 128;    // 64 rows of 64 16-bit columns
 constexpr float kLog2e = 1.4426950408889634f;
 
+// How the consumer warpgroups share a block's work. Up to hd = 128 each
+// owns 64 q rows and all of O's columns; at hd = 256 they share 64 q rows
+// and each owns half of O's columns (kOut).
+template <int HD>
+struct Split {
+  static constexpr bool kCols = HD > 128;
+  static constexpr int kBlockQ = kCols ? 64 : 64 * kConsumerWGs;
+  static constexpr int kQTiles = kBlockQ / 64;     // Q tiles in smem
+  static constexpr int kOut = kCols ? HD / kConsumerWGs : HD;
+  static_assert(kOut == 64 || kOut == 128, "P·V takes N = 64 or 128");
+};
+
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle's
-// period): Q [warpgroup][panel], K and V [slot][panel], each panel 64
+// period): Q [q tile][panel], K and V [slot][panel], each panel 64
 // rows × 64 columns (128 bytes a row); then the barriers.
 template <int HD>
 struct Layout {
   static constexpr int kPanels = HD / 64;
   static constexpr int kTileBytes = kPanels * kPanelBytes;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kConsumerWGs * kTileBytes;
+  static constexpr int kK = kQ + Split<HD>::kQTiles * kTileBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBar = kV + kStages * kTileBytes;
   // q_full, k_full[kStages], v_full[kStages], empty[kStages]
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
+  static_assert(kBytes <= 227 * 1024, "past the opt-in shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -454,11 +476,12 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
   }
 }
 
-// O += P·V for one k-step of 16 kv rows; a holds this thread's P fragment
-template <bool BF16, int HD>
-__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
+// O += P·V for one k-step of 16 kv rows over N output columns; a holds
+// this thread's P fragment
+template <bool BF16, int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
                                          const uint32_t* a, uint64_t db) {
-  if constexpr (HD == 128) {
+  if constexpr (N == 128) {
     if constexpr (BF16) {
       REPRO_WGMMA_RS_N128("bf16");
     } else {
@@ -550,9 +573,10 @@ __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t q_base,
   wgmma_commit();
 }
 
-// O += P_hi·V + P_lo·V of one kv tile, issued and committed.
-template <bool BF16, int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+// O += P_hi·V + P_lo·V of one kv tile over N columns, issued and
+// committed.
+template <bool BF16, int N>
+__device__ __forceinline__ void issue_pv(float (&o)[N / 2],
                                          const uint32_t (&p_hi)[16],
                                          const uint32_t (&p_lo)[16],
                                          uint32_t v_base) {
@@ -561,8 +585,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
 #pragma unroll
   for (int kk = 0; kk < kBlockKV / 16; ++kk) {
     const uint64_t dv = desc_mn_major(v_base + kk * 16 * 128);
-    wgmma_pv<BF16, HD>(o, p_hi + 4 * kk, dv);
-    wgmma_pv<BF16, HD>(o, p_lo + 4 * kk, dv);
+    wgmma_pv<BF16, N>(o, p_hi + 4 * kk, dv);
+    wgmma_pv<BF16, N>(o, p_lo + 4 * kk, dv);
   }
   wgmma_commit();
 }
@@ -652,11 +676,11 @@ struct Softmax {
 };
 
 // O *= the correction of the softmax's last step, row by row.
-template <int HD>
-__device__ __forceinline__ void rescale(float (&o)[HD / 2],
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N / 2],
                                         const Softmax& sm) {
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     o[4 * j] *= sm.corr0;
     o[4 * j + 1] *= sm.corr0;
     o[4 * j + 2] *= sm.corr1;
@@ -680,8 +704,8 @@ struct Ring {
 // of tile k together; the softmax of tile k follows once both landed, and
 // O is rescaled for tile k−1 just before its P·V. Registers hold one S
 // tile, one P tile (hi and lo) and O.
-template <bool BF16, int HD>
-__device__ __forceinline__ void consume(float (&o)[HD / 2], Softmax& sm,
+template <bool BF16, int HD, int N = Split<HD>::kOut>
+__device__ __forceinline__ void consume(float (&o)[N / 2], Softmax& sm,
                                         int wg, int n_tiles,
                                         const Ring& ring, const Rows& rows) {
   static_assert(kConsumerWGs == 2, "ping-pong takes two warpgroups");
@@ -705,9 +729,9 @@ __device__ __forceinline__ void consume(float (&o)[HD / 2], Softmax& sm,
     mbar_wait(ring.bar_k + 8 * s1, (k / kStages) & 1);
     mbar_wait(ring.bar_v + 8 * s, ((k - 1) / kStages) & 1);
     __syncwarp();
-    rescale<HD>(o, sm);
+    rescale<N>(o, sm);
     named_sync(1 + wg);
-    issue_pv<BF16, HD>(o, p_hi, p_lo, ring.v + s * ring.stride);
+    issue_pv<BF16, N>(o, p_hi, p_lo, ring.v + s * ring.stride);
     issue_qk<BF16, HD>(sc, ring.q, ring.k + s1 * ring.stride);
     named_arrive(2 - wg);
     wgmma_wait_all();
@@ -719,29 +743,32 @@ __device__ __forceinline__ void consume(float (&o)[HD / 2], Softmax& sm,
   const int s = (n_tiles - 1) % kStages;
   mbar_wait(ring.bar_v + 8 * s, ((n_tiles - 1) / kStages) & 1);
   __syncwarp();
-  rescale<HD>(o, sm);
+  rescale<N>(o, sm);
   named_sync(1 + wg);
-  issue_pv<BF16, HD>(o, p_hi, p_lo, ring.v + s * ring.stride);
+  issue_pv<BF16, N>(o, p_hi, p_lo, ring.v + s * ring.stride);
   if (wg == 0) named_arrive(2);  // warpgroup 1's last turn
   wgmma_wait_all();
   fence_regs(o);
 }
 
 // out = O / max(l, 1e-30), rounded once to the 16-bit type; out is
-// written as pairs of 16-bit values, (b, sq, h, hd / 2).
-template <bool BF16, int HD>
+// written as pairs of 16-bit values, (b, sq, h, hd / 2), this
+// warpgroup's N columns from column col0.
+template <bool BF16, int HD, int N>
 __device__ __forceinline__ void store(uint32_t* __restrict__ out,
-                                      const float (&o)[HD / 2],
+                                      const float (&o)[N / 2],
                                       const Softmax& sm, int b, int sq,
-                                      int h, int head, int r0, int cq) {
+                                      int h, int head, int r0, int cq,
+                                      int col0) {
   // the fast reciprocal (≤ 2 f32 ulp): an IEEE division would call a
   // slow-path subroutine
   const float d0 = __fdividef(1.f, fmaxf(quad_sum(sm.l0), 1e-30f));
   const float d1 = __fdividef(1.f, fmaxf(quad_sum(sm.l1), 1e-30f));
-  uint32_t* row0 = out + (((size_t)b * sq + r0) * h + head) * (HD / 2);
+  uint32_t* row0 =
+      out + (((size_t)b * sq + r0) * h + head) * (HD / 2) + col0 / 2;
   uint32_t* row1 = row0 + (size_t)8 * h * (HD / 2);
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     const int at = 4 * j + cq / 2;
     if (r0 < sq) row0[at] = pack2<BF16>(o[4 * j] * d0, o[4 * j + 1] * d0);
     if (r0 + 8 < sq)
@@ -763,6 +790,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    int kh, int n_bh, int nq, int causal, int window,
                    int q_offset, float scale) {
   using L = Layout<HD>;
+  using W = Split<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = base + L::kBar;
@@ -772,7 +800,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // the longest q tiles first: the q tile is the slowest grid index
   const int bh = blockIdx.x % n_bh;
-  const int q0 = (nq - 1 - blockIdx.x / n_bh) * kBlockQ;
+  const int q0 = (nq - 1 - blockIdx.x / n_bh) * W::kBlockQ;
   const int head = bh % h, b = bh / h;
   const int kvh = head / (h / kh);
 
@@ -781,7 +809,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int row_lo = q0 + q_offset;
   int t_end = (skv + kBlockKV - 1) / kBlockKV;
   if (causal)
-    t_end = min(t_end, floor_div(row_lo + kBlockQ - 1, kBlockKV) + 1);
+    t_end = min(t_end, floor_div(row_lo + W::kBlockQ - 1, kBlockKV) + 1);
   const int t_begin =
       window ? max(0, floor_div(row_lo - window - (kBlockKV - 1), kBlockKV) +
                           1)
@@ -804,8 +832,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (warp == 4 * kConsumerWGs) {
     // ---- producer: one lane issues every copy ----
     if (lane == 0) {
-      mbar_expect_tx(bar_q, kConsumerWGs * L::kTileBytes);
-      for (int w = 0; w < kConsumerWGs; ++w)
+      mbar_expect_tx(bar_q, W::kQTiles * L::kTileBytes);
+      for (int w = 0; w < W::kQTiles; ++w)
         for (int p = 0; p < L::kPanels; ++p)
           tma_load_3d(base + L::kQ + w * L::kTileBytes + p * kPanelBytes,
                       &tm_q, head * HD + 64 * p, q0 + 64 * w, b, bar_q);
@@ -828,19 +856,22 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // ---- consumers ----
   const int wg = warp / 4;
-  const int r0 = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;  // and r0 + 8
-  const Rows rows{r0 + q_offset, q0 + 64 * wg + q_offset, 2 * (lane % 4),
+  // the warpgroup's q tile (its own, or the shared one) and O columns
+  const int qt = W::kCols ? 0 : wg;
+  const int col0 = W::kCols ? wg * W::kOut : 0;
+  const int r0 = q0 + 64 * qt + 16 * (warp % 4) + lane / 4;  // and r0 + 8
+  const Rows rows{r0 + q_offset, q0 + 64 * qt + q_offset, 2 * (lane % 4),
                   skv, causal, window, scale};
-  const Ring ring{base + L::kQ + wg * L::kTileBytes, base + L::kK,
-                  base + L::kV, L::kTileBytes, bar_k, bar_v, bar_e,
-                  t_begin};
-  float o[HD / 2];
+  const Ring ring{base + L::kQ + qt * L::kTileBytes, base + L::kK,
+                  base + L::kV + (col0 / 64) * kPanelBytes, L::kTileBytes,
+                  bar_k, bar_v, bar_e, t_begin};
+  float o[W::kOut / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < W::kOut / 2; ++i) o[i] = 0.f;
   Softmax sm;
   mbar_wait(bar_q, 0);
   consume<BF16, HD>(o, sm, wg, n_tiles, ring, rows);
-  store<BF16, HD>(out, o, sm, b, sq, h, head, r0, rows.cq);
+  store<BF16, HD, W::kOut>(out, o, sm, b, sq, h, head, r0, rows.cq, col0);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -894,7 +925,7 @@ bool make_map(CUtensorMap* map, const void* ptr, bool bf16, int b, int s,
 template <bool BF16, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int sq, int skv, int h, int kh, int causal, int window,
-           int q_offset, cudaStream_t stream) {
+           int q_offset, float scale, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   if (!make_map(&tm_q, q, BF16, b, sq, h, HD) ||
       !make_map(&tm_k, k, BF16, b, skv, kh, HD) ||
@@ -905,10 +936,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nq = (sq + kBlockQ - 1) / kBlockQ;
+  const int nq = (sq + Split<HD>::kBlockQ - 1) / Split<HD>::kBlockQ;
   const long long blocks = (long long)nq * h * b;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const float scale = (float)(1.0 / sqrt((double)HD));
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<uint32_t*>(out), sq, skv, h, kh, h * b,
       nq, causal, window, q_offset, scale);
@@ -920,22 +950,39 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 }  // namespace
 
 // q: (b, sq, h, hd), k/v: (b, skv, kh, hd), out: (b, sq, h, hd), all
-// contiguous float32 on the device. hd is 64 or 128, h a multiple of kh.
-// Launches on `stream`, does not synchronise, allocates nothing.
+// contiguous float32 on the device. hd is 64, 128 or 256, h a multiple of
+// kh; scale multiplies q·k (1/√hd of the unpadded head dim). Launches on
+// `stream`, does not synchronise, allocates nothing.
 extern "C" int repro_flash_attention_f32(const void* q, const void* k,
                                          const void* v, void* out, int b,
                                          int sq, int skv, int h, int kh,
                                          int hd, int causal, int window,
-                                         int q_offset, cudaStream_t stream) {
+                                         int q_offset, float scale,
+                                         cudaStream_t stream) {
   if (b <= 0 || sq <= 0 || skv <= 0 || kh <= 0 || h % kh != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 64)
     return launch_ffma<64>(q, k, v, out, b, sq, skv, h, kh, causal, window,
-                           q_offset, stream);
+                           q_offset, scale, stream);
   if (hd == 128)
     return launch_ffma<128>(q, k, v, out, b, sq, skv, h, kh, causal, window,
-                            q_offset, stream);
+                            q_offset, scale, stream);
+  if (hd == 256)
+    return launch_ffma<256>(q, k, v, out, b, sq, skv, h, kh, causal, window,
+                            q_offset, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int HD>
+int launch_wgmma(bool bf16, const void* q, const void* k, const void* v,
+                 void* out, int b, int sq, int skv, int h, int kh,
+                 int causal, int window, int q_offset, float scale,
+                 cudaStream_t stream) {
+  return bf16 ? tc::launch<true, HD>(q, k, v, out, b, sq, skv, h, kh, causal,
+                                     window, q_offset, scale, stream)
+              : tc::launch<false, HD>(q, k, v, out, b, sq, skv, h, kh,
+                                      causal, window, q_offset, scale,
+                                      stream);
 }
 
 // The same contract for 16-bit inputs: dtype 1 = bfloat16, 2 = float16;
@@ -945,7 +992,7 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
                                            int dtype, int b, int sq, int skv,
                                            int h, int kh, int hd, int causal,
                                            int window, int q_offset,
-                                           cudaStream_t stream) {
+                                           float scale, cudaStream_t stream) {
   if (b <= 0 || sq <= 0 || skv <= 0 || kh <= 0 || h % kh != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -956,14 +1003,13 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
   if (dtype != 1 && dtype != 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 64)
-    return bf16 ? tc::launch<true, 64>(q, k, v, out, b, sq, skv, h, kh,
-                                       causal, window, q_offset, stream)
-                : tc::launch<false, 64>(q, k, v, out, b, sq, skv, h, kh,
-                                        causal, window, q_offset, stream);
+    return launch_wgmma<64>(bf16, q, k, v, out, b, sq, skv, h, kh, causal,
+                            window, q_offset, scale, stream);
   if (hd == 128)
-    return bf16 ? tc::launch<true, 128>(q, k, v, out, b, sq, skv, h, kh,
-                                        causal, window, q_offset, stream)
-                : tc::launch<false, 128>(q, k, v, out, b, sq, skv, h, kh,
-                                         causal, window, q_offset, stream);
+    return launch_wgmma<128>(bf16, q, k, v, out, b, sq, skv, h, kh, causal,
+                             window, q_offset, scale, stream);
+  if (hd == 256)
+    return launch_wgmma<256>(bf16, q, k, v, out, b, sq, skv, h, kh, causal,
+                             window, q_offset, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -31,13 +31,19 @@ keyed by stream name, replaces that stream's choices —
     "net"    (cand (M, M), available (M,), stale (M,)) the fabric's round
              masks; on a packed fabric (slot_mask (M, D), available,
              stale)
+    "churn"  (u_leave (M,), u_join (M,)) the open world's membership
+             uniforms (`openworld.lifecycle.stage_churn`)
+    "byz"    {leaf: noise} the gaussian attack's standard normals, by the
+             port's leaf name (`utils.pytree.tree_paths` of the attacked
+             parameter view; `openworld.attacks.stage_byzantine`)
 
 — through which the parity tests inject the reference's draws. The
-regrow planes are as large as the model, so without injection they are
-drawn on the data's device (`device_generator`), not on the CPU. The
-fabric draws from network generators of its own (`net_streams`, keyed
-apart from the strategy's streams), so adding a fabric changes no other
-stream's draws.
+regrow planes and the attack noise are as large as the model, so without
+injection they are drawn on the data's device (`device_generator`), not
+on the CPU. The fabric and the open world draw from generators of their
+own (`salted_streams`: the round key and a salt; `net_streams` is the
+fabric's), keyed apart from the strategy's streams, so adding a fabric,
+churn or an attack changes no other stream's draws.
 """
 from __future__ import annotations
 
@@ -84,12 +90,19 @@ def named_streams(key, streams: tuple) -> dict:
     return out
 
 
+def salted_streams(key, salt: int, streams: tuple) -> dict:
+    """Generators keyed by the round key and `salt`: independent of every
+    strategy stream (whose positions end each stream's seed) and of the
+    streams of another salt."""
+    return named_streams((*key, salt), streams)
+
+
 def net_streams(key) -> dict:
     """The round's network generators (`comms.fabric.NET_STREAMS`), keyed
     by the round key and NET_SALT, independent of every strategy stream."""
     from repro_torch.comms.fabric import NET_STREAMS
 
-    return named_streams((*key, NET_SALT), NET_STREAMS)
+    return salted_streams(key, NET_SALT, NET_STREAMS)
 
 
 def device_generator(generator: torch.Generator, device) -> torch.Generator:
@@ -236,6 +249,9 @@ class RoundContext:
 
     m            population size
     data         stacked client dataset dict — (M, N, ...) tensors
+    key          the round key (tuple of ints) the streams derive from;
+                 stages that draw apart from the strategy's streams key
+                 their own by it (`salted_streams`)
     streams      named CPU torch.Generators (the strategy's stream layout)
     draws        injected draws by stream name (see module docstring)
     active       (M,) bool — the clients sampled and online this round
@@ -259,6 +275,12 @@ class RoundContext:
                  fabric); under `CommsConfig.stale_mode="serve"` a
                  versioned strategy picks the ring slot each peer serves
                  by it
+    alive        (M,) bool population membership (`openworld.lifecycle`;
+                 None on closed populations): the churn stage sets it and
+                 intersects `active` and `cand` with it
+    threat       the `openworld.attacks.ThreatState` (None on honest
+                 populations), set by the threat stage; the PFedDST
+                 `score_select` stage calls its `game_scores` hook
     plan         the ExchangePlan (set by the plan stage)
     store        the `fl.hetero.PeerStore` a versioned strategy serves
                  peers from this round (None otherwise); an exposure for
@@ -278,11 +300,14 @@ class RoundContext:
     active: Any
     sampled_idx: Any
     draws: dict = field(default_factory=dict)
+    key: tuple = ()
     cand: Any = None
     cand_bounded: bool = False
     nbr: Any = None
     cost: Any = None
     stale: Any = None
+    alive: Any = None
+    threat: Any = None
     plan: Optional[ExchangePlan] = None
     store: Any = None
     devices: Any = None
@@ -367,9 +392,9 @@ def run_round(stages, state, data, key, *, m: int, ratio: float,
     if available is not None:
         active = active & available
     ctx = RoundContext(m=m, data=data, streams=streams, draws=draws,
-                       active=active, sampled_idx=idx, cand=cand,
-                       cand_bounded=cand_bounded, nbr=nbr, cost=cost,
-                       stale=stale)
+                       key=tuple(key), active=active, sampled_idx=idx,
+                       cand=cand, cand_bounded=cand_bounded, nbr=nbr,
+                       cost=cost, stale=stale)
     for stage in stages:
         # a profiler span per stage (torch.profiler groups ops by it)
         with annotate(f"stage:{stage_name(stage)}"):
@@ -474,18 +499,24 @@ def stage_train_full(cfg, fl, opt, n_steps: int, *, stream: str = "train"):
     return local_train
 
 
-def stage_star_average(cfg, *, share: str):
+def stage_star_average(cfg, *, share: str, reducer=None):
     """Server step: average the shared partition ("model" or "extractor")
     over the plan's active clients and broadcast it back; keep the old
-    population when nobody participated."""
+    population when nobody participated.
+
+    reducer: a drop-in replacement for `mean_over_active` with its
+    `(tree, active) -> broadcast tree` contract, the hook the robust
+    aggregators of `openworld.defense` plug into. None keeps the plain
+    mean bit for bit."""
+    reduce = mean_over_active if reducer is None else reducer
 
     def aggregate_star(state, ctx):
         params, active = state["params"], ctx.plan.active
         if share == "model":
-            new = mean_over_active(params, active)
+            new = reduce(params, active)
         else:
             shared, headers = split_params(cfg, params)
-            new = merge_params(mean_over_active(shared, active), headers)
+            new = merge_params(reduce(shared, active), headers)
         return {**state,
                 "params": keep_if_none_active(active, new, params)}
 
@@ -522,18 +553,24 @@ def mix_tree(tree: dict, plan: ExchangePlan, m: int) -> dict:
     return aggregate_extractors(tree, plan.weights)
 
 
-def stage_mix(cfg, *, share: str):
+def stage_mix(cfg, *, share: str, mixer=None):
     """Gossip step: mix the shared partition ("model" or "extractor") by
-    the plan (`mix_tree`); inactive clients keep their model."""
+    the plan (`mix_tree`); inactive clients keep their model.
+
+    mixer: a drop-in replacement for `mix_tree` with its `(tree, plan, m)
+    -> tree` contract, the hook the robust per-row aggregators of
+    `openworld.defense` plug into (they read the plan's dense `edges` and
+    `weights`, so a packed plan's lists go unused). None keeps the plain
+    mix bit for bit."""
+    mix = mix_tree if mixer is None else mixer
 
     def aggregate_mix(state, ctx):
         params, active = state["params"], ctx.plan.active
         if share == "model":
-            mixed = where_tree(active, mix_tree(params, ctx.plan, ctx.m),
-                               params)
+            mixed = where_tree(active, mix(params, ctx.plan, ctx.m), params)
         else:
             e, h = split_params(cfg, params)
-            mixed_e = where_tree(active, mix_tree(e, ctx.plan, ctx.m), e)
+            mixed_e = where_tree(active, mix(e, ctx.plan, ctx.m), e)
             mixed = merge_params(mixed_e, h)
         return {**state, "params": mixed}
 

@@ -20,6 +20,11 @@ device wall-clock: pfeddst_async's rounds report their deadline-capped
 duration (`round_wall_s` from the gate), a synchronous round stalls on
 its slowest participant. Without a profile those columns stay zero.
 
+Under `fl.threat` or `fl.churn` the strategy runs wrapped by the open
+world (`openworld.make_open_spec`); `eval_mask` restricts the reported
+accuracy to a set of clients (the honest cast, say), and the trace's
+selection graph carries the adversary cast.
+
 `trace=` writes the reference's schema-v1 JSONL round trace
 (`obs.trace`): a header, optionally a stage profile (`trace_stages`: 2
 instrumented rounds on throwaway state), one record per round, the
@@ -59,6 +64,7 @@ from repro_torch.obs.trace import (
     stage_profile_record,
     summary_record,
 )
+from repro_torch.openworld import threat_state
 from repro_torch.optim.sgd import sgd
 
 FT_STREAM_KEY = 1 << 20   # keys eval-time fine-tune draws apart from rounds
@@ -217,7 +223,7 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
                    verbose: bool = True, device="cuda",
                    on_round=None, trace: str | None = None,
                    trace_stages: bool = False,
-                   trace_edges: bool = False) -> History:
+                   trace_edges: bool = False, eval_mask=None) -> History:
     """data: dict(train_x, train_y, test_x, test_y), leading-M stacked
     (tensors or numpy arrays; moved to `device`).
 
@@ -237,7 +243,11 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
     score decomposition; closed by the cumulative selection graph and a
     summary. trace_stages adds a 2-round stage profile on throwaway state
     (`_profile_stages`); trace_edges embeds each round's selected edges.
-    With trace=None the run is unchanged."""
+    With trace=None the run is unchanged.
+
+    eval_mask: optional (M,) bool restricting the reported personalized
+    accuracy to these clients' mean (NaN when it selects none); None
+    keeps the full-M mean."""
     device = resolve_device(device)
     strat = make_strategy(strategy_name, cfg, fl, steps_per_epoch,
                           device=device)
@@ -263,7 +273,10 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
             strategy=strategy_name, num_clients=fl.num_clients,
             num_rounds=num_rounds, seed=seed, family=cfg.family,
             eval_every=eval_every))
-        graph = SelectionGraph(fl.num_clients)
+        ts = threat_state(fl.threat, fl.num_clients)
+        graph = SelectionGraph(
+            fl.num_clients, adversaries=None if ts is None
+            else ts.adversaries.numpy())
         if trace_stages:
             tracer.write(stage_profile_record(_profile_stages(
                 strat, fl, train_data, seed)))
@@ -330,8 +343,11 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
                 gen = named_streams((seed, FT_STREAM_KEY, r), ("ft",))["ft"]
                 params = _finetune_heads(cfg, fl, params, data["train_x"],
                                          data["train_y"], gen)
-            acc, _ = evaluate_population(cfg, params, data["test_x"],
-                                         data["test_y"])
+            acc, accs = evaluate_population(cfg, params, data["test_x"],
+                                            data["test_y"])
+            if eval_mask is not None:
+                kept = accs.cpu().numpy()[np.asarray(eval_mask, bool)]
+                acc = float(kept.mean()) if kept.size else float("nan")
             loss_keys = [k for k in metrics if "loss" in k]
             tl = float(np.mean([float(metrics[k]) for k in loss_keys])) \
                 if loss_keys else float("nan")

@@ -40,6 +40,15 @@ refuses them). Stale serving (`CommsConfig.stale_mode="serve"` with
 reference does, that stale peers serve live parameters, and that a
 finite `deadline_s` is ignored.
 
+The open world (`fl.threat`, `fl.churn`; `repro_torch.openworld`) wraps
+any strategy: `make_strategy` passes its stages through
+`openworld.make_open_spec` (churn, the threat cast, the byzantine
+corruption, isolation telemetry; the state becomes `{"inner", "alive"}`),
+and a `ThreatConfig.defense` is wired into the aggregation when the
+stages are built (`reducer=` of the star average, `mixer=` of the gossip
+mix, the PFedDST aggregate stage). Inert or absent configs leave the
+stages the very same objects.
+
 Every strategy carries the comms fabric of `fl.comms` (`Strategy.fabric`,
 on the strategy's device; None with `comms=None`): the engine composes
 its availability with the client sampling, cuts every plan to the
@@ -88,6 +97,7 @@ from repro_torch.fl.engine import (
 from repro_torch.kernels import ops
 from repro_torch.models import model as model_mod
 from repro_torch.models.split import merge_params, split_params
+from repro_torch.openworld import make_open_spec, robust_mixer, star_reducer
 from repro_torch.optim.sgd import sgd
 from repro_torch.utils.pytree import leaf_order
 
@@ -97,7 +107,8 @@ STRATEGIES = CENTRAL + GOSSIP + ("pfeddst", "pfeddst_random",
                                   "pfeddst_async")
 
 # FLConfig fields of layers not ported yet, and their ROADMAP queue 1 item
-NOT_PORTED_FIELDS = {"threat": 11}
+# (every layer of FLConfig is ported)
+NOT_PORTED_FIELDS = {}
 
 CENTRAL_STREAMS = ("act", "train")
 GOSSIP_STREAMS = ("act", "train", "nbr", "grow")
@@ -207,11 +218,14 @@ def _central_spec(cfg, fl, steps_per_epoch: int, kind: str, device):
     else:
         train = stage_train_full(cfg, fl, opt, n_steps)
     share = "model" if kind == "fedavg" else "extractor"
-    stages = (stage_plan_star(), train, stage_star_average(cfg, share=share),
+    stages = (stage_plan_star(), train,
+              stage_star_average(cfg, share=share,
+                                 reducer=star_reducer(fl.threat)),
               stage_bump_round())
     return init, stages, CENTRAL_STREAMS, dict(
         comm_pattern="star", payload_kind=share,
-        needs_head_finetune=(kind == "fedbabu"))
+        needs_head_finetune=(kind == "fedbabu"),
+        params_for_eval=_dict_params)
 
 
 # ---------------------------------------------------------------------------
@@ -298,11 +312,11 @@ def _gossip_spec(cfg, fl, steps_per_epoch: int, kind: str, device):
     stages = (stage_plan_gossip(fl, directed=(kind == "dfedpgp"),
                                 topo_degree=topo_degree),
               stage_train_full(cfg, fl, opt, n_steps),
-              stage_mix(cfg, share=share))
+              stage_mix(cfg, share=share, mixer=robust_mixer(fl.threat)))
     if kind == "dispfl":
         stages = (stage_apply_masks(),) + stages + (stage_evolve_masks(fl),)
     return init, stages + (stage_bump_round(),), GOSSIP_STREAMS, dict(
-        payload_kind=share,
+        payload_kind=share, params_for_eval=_dict_params,
         payload_fraction=(1.0 - fl.dispfl_sparsity if kind == "dispfl"
                           else 1.0))
 
@@ -336,7 +350,7 @@ def _pfeddst_spec(cfg, fl, steps_per_epoch: int, name: str, device):
     # informative last round (Algorithm 1's context)
     return init, stages, PFEDDST_STREAMS, dict(
         affinity=lambda state: state.loss_matrix,
-        versioned=hetero is not None)
+        versioned=hetero is not None, params_for_eval=_pfeddst_params)
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +361,9 @@ def make_strategy(name: str, cfg, fl, steps_per_epoch: int = 2, *,
                   device="cuda") -> Strategy:
     """The strategy `name` on `device` (default CUDA; raises without it),
     with the comms fabric of `fl.comms` on the same device (its links
-    scaled by a `device_profile`'s channel rates)."""
+    scaled by a `device_profile`'s channel rates), wrapped by the open
+    world of `fl.threat` / `fl.churn` (`openworld.make_open_spec`: the
+    same stage objects when both are absent or inert)."""
     if name not in STRATEGIES:
         raise KeyError(f"unknown strategy {name!r}; available: {STRATEGIES}")
     for field, item in NOT_PORTED_FIELDS.items():
@@ -360,7 +376,10 @@ def make_strategy(name: str, cfg, fl, steps_per_epoch: int = 2, *,
             _gossip_spec if name in GOSSIP else _pfeddst_spec)
     init, stages, streams, meta = spec(cfg, fl, steps_per_epoch, name,
                                        device)
+    init, stages, meta = make_open_spec(init, stages, meta, fl,
+                                        device=device)
     affinity = meta.pop("affinity", None)
+    params_for_eval = meta.pop("params_for_eval")
     # deterministic in (profile, M): the hetero runtime and the simulator
     # derive the same vectors from the same inputs
     rates = (None if fl.device_profile is None else
@@ -404,10 +423,9 @@ def make_strategy(name: str, cfg, fl, steps_per_epoch: int = 2, *,
                              state))
 
     return Strategy(name=name, init=init, round=round_fn,
-                    params_for_eval=(_pfeddst_params if spec is _pfeddst_spec
-                                     else _dict_params),
-                    fabric=fabric, stages=stages, key_streams=streams,
-                    affinity=affinity, **meta)
+                    params_for_eval=params_for_eval, fabric=fabric,
+                    stages=stages, key_streams=streams, affinity=affinity,
+                    **meta)
 
 
 def _dict_params(state):

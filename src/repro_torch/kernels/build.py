@@ -37,13 +37,15 @@ SIGNATURES = {
     "repro_flash_attention_f32": [
         c_void_p, c_void_p, c_void_p, c_void_p,          # q k v out
         c_int, c_int, c_int, c_int, c_int, c_int,        # b sq skv h kh hd
-        c_int, c_int, c_int, c_void_p,                   # causal window
-    ],                                                   # q_offset stream
+        c_int, c_int, c_int, c_float, c_void_p,          # causal window
+    ],                                                   # q_offset scale
+                                                         # stream
     "repro_flash_attention_wgmma": [
         c_void_p, c_void_p, c_void_p, c_void_p, c_int,   # q k v out dtype
         c_int, c_int, c_int, c_int, c_int, c_int,        # b sq skv h kh hd
-        c_int, c_int, c_int, c_void_p,                   # causal window
-    ],                                                   # q_offset stream
+        c_int, c_int, c_int, c_float, c_void_p,          # causal window
+    ],                                                   # q_offset scale
+                                                         # stream
     "repro_gossip_mix_f32": [
         c_void_p, c_void_p, c_void_p, c_void_p,          # x idx w out
         c_int, c_longlong, c_int, c_void_p,              # m f d stream

@@ -12,6 +12,12 @@ input type so P·V keeps f32-level precision), f32 the fp32 FFMA kernel.
 `flash_attention_plain` is their plain PyTorch version: the Pallas body
 over (q block, kv block) pairs, skipping kv blocks wholly outside the
 band.
+
+The kernels are instantiated at head dims 64, 128 and 256
+(`HEAD_DIMS`); `flash_attention_padded` runs any other head dim up to 256
+on the next instance: q, k and v zero-padded on the head axis, the scale
+that of the true head dim, the padded output columns dropped. Zero
+columns add exact zeros to q·k and to P·v, so it is the same function.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.peer_score import aligned, check_cuda_matrix
 
 BLOCK = 128               # the Pallas kernel's default q and kv block
-HEAD_DIMS = (64, 128)     # the CUDA kernels' instances
+HEAD_DIMS = (64, 128, 256)  # the CUDA kernels' instances
 # dtype -> the kernel that takes it: the one place the route is chosen
 ROUTES = {torch.float32: "ffma", torch.bfloat16: "wgmma",
           torch.float16: "wgmma"}
@@ -42,17 +48,19 @@ def in_band(row_lo: int, row_hi: int, col_lo: int, col_hi: int, *,
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          q_offset: int = 0):
+                          q_offset: int = 0, scale: float | None = None):
     """The Pallas body in PyTorch: for each q block, the kv blocks in its
     band in order, with the online softmax (masked scores −1e30, masked
-    p zeroed, l floored at 1e-30). → (B, Sq, H, hd) in q.dtype."""
+    p zeroed, l floored at 1e-30). scale multiplies q·k (default
+    1/√hd). → (B, Sq, H, hd) in q.dtype."""
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
     if h % kh:
         raise ValueError(f"query heads {h} not a multiple of kv heads {kh}")
     rep = h // kh
     bq, bkv = min(BLOCK, max(sq, 8)), min(BLOCK, max(skv, 8))
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
     # (B, K, R, S, hd) queries and (B, K, S, hd) keys/values, in f32
     qf = q.float().reshape(b, sq, kh, rep, hd).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3)
@@ -88,13 +96,41 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
+def padded_head_dim(hd: int) -> int:
+    """The kernel instance a head dim runs on: the smallest of HEAD_DIMS
+    at least hd. Raises above the largest."""
+    for inst in HEAD_DIMS:
+        if hd <= inst:
+            return inst
+    raise ValueError(f"the flash_attention kernel takes head_dim up to "
+                     f"{HEAD_DIMS[-1]}, got {hd}")
+
+
+def flash_attention_padded(fn, q, k, v, **kw):
+    """`fn(q, k, v, scale=…, **kw)` on the head dim's kernel instance:
+    q, k and v zero-padded on the head axis to `padded_head_dim(hd)`,
+    the scale 1/√hd of the true head dim, the padded output columns
+    dropped. Without padding it is `fn` with the default scale."""
+    hd = q.shape[-1]
+    inst = padded_head_dim(hd)
+    scale = 1.0 / math.sqrt(hd)
+    if inst == hd:
+        return fn(q, k, v, scale=scale, **kw)
+    pad = (0, inst - hd)
+    out = fn(torch.nn.functional.pad(q, pad).contiguous(),
+             torch.nn.functional.pad(k, pad).contiguous(),
+             torch.nn.functional.pad(v, pad).contiguous(), scale=scale, **kw)
+    return out[..., :hd].contiguous()
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          q_offset: int = 0):
     """The CUDA kernel of q's dtype (`ROUTES`). q (B, Sq, H, hd), k/v
     (B, Skv, K, hd): contiguous CUDA tensors of one float dtype (f32, bf16
-    or f16) on one device, hd ∈ {64, 128}, H a multiple of K. A bf16/f16
-    q, k or v whose start is not 16-byte aligned (TMA's requirement) is
-    copied first and takes the same kernel. Same output as
+    or f16) on one device, hd ≤ 256 (other than 64, 128 and 256 through
+    `flash_attention_padded`), H a multiple of K. A bf16/f16 q, k or v
+    whose start is not 16-byte aligned (TMA's requirement) is copied
+    first and takes the same kernel. Same output as
     `flash_attention_plain`."""
     if not isinstance(q, torch.Tensor) or q.dtype not in ROUTES:
         raise ValueError("q must be a float32/bfloat16/float16 tensor")
@@ -111,23 +147,31 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{tuple(v.shape)}")
     if skv < 1:
         raise ValueError("k/v must hold at least one position")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the flash_attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {hd}")
+    padded_head_dim(hd)
     if kh < 1 or h % kh:
         raise ValueError(f"query heads {h} not a multiple of kv heads {kh}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    return flash_attention_padded(_launch, q, k, v, causal=causal,
+                                  window=window, q_offset=q_offset)
+
+
+def _launch(q, k, v, *, causal: bool, window: int, q_offset: int,
+            scale: float):
+    """One launch of the kernel of q's dtype at an instance's head dim."""
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
     route = ROUTES[q.dtype]
     if route == "wgmma":
         q, k, v = aligned(q), aligned(k), aligned(v)
     lib = build.library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     args = (b, sq, skv, h, kh, hd, int(bool(causal)), int(window),
-            int(q_offset), torch.cuda.current_stream(q.device).cuda_stream)
+            int(q_offset), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if route == "wgmma":
         code = lib.repro_flash_attention_wgmma(*ptrs, DTYPE_CODES[q.dtype],
                                                *args)

@@ -13,6 +13,9 @@ flash_attention / wkv_chunked kernels, on the CPU their plain versions.
 (The reference's `launch/serve.py` prefills with backend="naive"; both routes
 compute one function, see PERF.md.) The decode is a Python loop over
 positions; greedy by default, masking the padded vocabulary to −1e30.
+`--ckpt-dir` restores the parameters from the latest checkpoint there
+(`repro_torch.checkpoint`, the reference's format, so either package's
+file), as the reference's driver does.
 
 CPU-scale example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
@@ -27,6 +30,7 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import latest_checkpoint, load_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_mod
@@ -157,6 +161,10 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore the parameters from the latest "
+                         "checkpoint in this directory (either package's "
+                         "format), if there is one")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=1,
                     help="number of requests to serve; request 0 pays "
@@ -177,6 +185,11 @@ def main(argv=None):
         raise SystemExit("cnn has no decode step")
     params = model_mod.init_params(
         cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    if args.ckpt_dir:
+        path = latest_checkpoint(args.ckpt_dir)
+        if path:
+            params, _ = load_checkpoint(path, like=params, device=dev)
+            print(f"restored {path}")
 
     def prompts_fn(i):
         g = torch.Generator(device=dev).manual_seed(args.seed + 1 + i)

@@ -92,16 +92,22 @@ class SelectionGraph:
     observe(mask_or_edges) per round → frequency counts, per-round edge
     sets, and round-over-round churn (1 − Jaccard of consecutive edge
     sets; 0.0 for the first observed round). Masks may be tensors on any
-    device or numpy arrays. (The reference's `adversaries` annotation
-    comes with the open-world layer, ROADMAP queue 1 item 11.)
+    device or numpy arrays.
+
+    adversaries: optional (M,) bool cast annotation (`repro_torch.
+    openworld`), exported in the record so the frequency view can be
+    split into honest→honest and honest→adversary edges offline; it never
+    affects the counts.
     """
 
-    def __init__(self, m: int):
+    def __init__(self, m: int, adversaries=None):
         self.m = int(m)
         self.counts = np.zeros((m, m), np.int64)
         self.rounds = 0
         self.churn: list = []
         self._prev: set | None = None
+        self.adversaries = (None if adversaries is None else
+                            np.asarray(_numpy(adversaries), bool).reshape(m))
 
     @staticmethod
     def _to_edges(mask_or_edges) -> set:
@@ -139,10 +145,16 @@ class SelectionGraph:
         return self.counts / max(self.rounds, 1)
 
     def to_record(self) -> dict:
-        """The trace's `selection_graph` record (obs/trace schema)."""
-        return {"type": "selection_graph", "num_clients": self.m,
-                "rounds": self.rounds, "edges": self.edge_list(),
-                "churn": [round(float(c), 6) for c in self.churn]}
+        """The trace's `selection_graph` record (obs/trace schema; the
+        optional `adversaries` key is additive: the validator checks the
+        required keys only)."""
+        rec = {"type": "selection_graph", "num_clients": self.m,
+               "rounds": self.rounds, "edges": self.edge_list(),
+               "churn": [round(float(c), 6) for c in self.churn]}
+        if self.adversaries is not None:
+            rec["adversaries"] = [int(i)
+                                  for i in np.flatnonzero(self.adversaries)]
+        return rec
 
     def export_json(self, path: str):
         with open(path, "w") as fh:

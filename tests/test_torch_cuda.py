@@ -395,6 +395,50 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
         assert ref.within_ulps(got, want)
 
 
+# hd 256 (its own instances) and head dims padded to the next instance;
+# (1, 4096, 4096, 10, 1, 256, True, 2048, 0) is recurrentgemma-2b's
+# attention shape
+FLASH_HEAD_DIM_CASES = [(1, 300, 300, 10, 1, 256, True, 2048, 0),
+                        (1, 1100, 1100, 4, 1, 256, True, 300, 0),
+                        (2, 130, 200, 4, 2, 256, False, 0, 0),
+                        (1, 77, 130, 4, 4, 96, True, 16, 53),
+                        (1, 200, 200, 4, 2, 32, True, 0, 0),
+                        (1, 90, 90, 2, 1, 200, True, 0, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_HEAD_DIM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_kernel_matches_plain_at_other_head_dims(cuda, case,
+                                                                 dtype):
+    """hd 256 on both routes, and hd 32, 96 and 200 zero-padded to the
+    next instance, against the unpadded plain version: f32 within 1e-5 of
+    max(1, max|out|), bf16 and f16 within one ulp of the dtype; one
+    launch of the dtype's route a call."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    b, sq, skv, h, kh, hd, causal, window, q_offset = case
+    g = torch.Generator(device=cuda).manual_seed(sum(case))
+    q = torch.randn((b, sq, h, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, skv, kh, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, skv, kh, hd), generator=g, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    routes = dict(fa.flash_attention_cuda.route_launches)
+    got = ops.flash_attention(q, k, v, **kw)
+    routes = {r: n - routes[r]
+              for r, n in fa.flash_attention_cuda.route_launches.items()}
+    assert routes[fa.ROUTES[dtype]] == 1 and sum(routes.values()) == 1
+    want = ops.flash_attention(q, k, v, impl="plain", **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+    else:
+        assert ref.within_ulps(got, want)
+
+
 @pytest.mark.cuda
 def test_flash_attention_routes_by_dtype(cuda):
     """bf16 and f16 reach the wgmma kernel, f32 the FFMA kernel; a bf16
@@ -552,10 +596,9 @@ def test_serving_kernels_count_launches_and_refuse_bad_input(cuda):
                                    "select_topk": 0, "wkv_chunked": 1}
     with pytest.raises(ValueError):
         flash_attention_cuda(q, q.half(), q)           # mixed dtypes
+    wide = torch.randn(1, 70, 4, 320, device=cuda)
     with pytest.raises(ValueError):
-        flash_attention_cuda(q[..., :32].contiguous(),
-                             q[..., :32].contiguous(),
-                             q[..., :32].contiguous())   # head_dim 32
+        flash_attention_cuda(wide, wide, wide)           # head_dim > 256
     with pytest.raises(ValueError):
         wkv_chunked_cuda(r, r, r, r.half(), torch.zeros(2, 64, device=cuda))
     with pytest.raises(ValueError):
@@ -828,3 +871,103 @@ def test_async_rounds_launch_select_topk_on_served_headers(cuda,
         torch.testing.assert_close(
             gpu_state.loss_matrix.cpu(), want, rtol=1e-3,
             atol=max(1e-4, 1e-3 * float(want.abs().max())))
+
+
+# ---------------------------------------------------------------------------
+# the open world and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_attacked_defended_pfeddst_round_median_bitwise_cpu(cuda,
+                                                            monkeypatch):
+    """One pfeddst round under sign_flip with score gaming and the median
+    defense on the card: select_topk launched with the (M, M) spoofed
+    cost, and the card's median aggregate bitwise equal to the CPU's on
+    the same tensors."""
+    import dataclasses
+
+    from repro_torch.configs import FLConfig, ThreatConfig, get_config
+    from repro_torch.core import rounds as rounds_mod
+    from repro_torch.data.synthetic import client_datasets_cifar
+    from repro_torch.fl.strategies import make_strategy
+
+    cfg = dataclasses.replace(get_config("resnet18-cifar").reduced(),
+                              dtype="bfloat16", image_size=8)
+    data = client_datasets_cifar(1, 8, samples_per_class=10, image_size=8)
+    train = {"images": data["train_x"].to(cuda),
+             "labels": data["train_y"].to(cuda)}
+    fl = FLConfig(num_clients=8, peers_per_round=2, batch_size=8,
+                  client_sample_ratio=0.5, epochs_extractor=1,
+                  epochs_header=1, probe_size=4, use_score_kernel=True,
+                  threat=ThreatConfig(adversary_fraction=0.25,
+                                      attack="sign_flip", score_game="both",
+                                      defense="median"))
+    strat = make_strategy("pfeddst", cfg, fl, 1, device=cuda)
+    real = rounds_mod.robust_row_aggregate
+    checked = []
+
+    def spy(tree, edges, weights, m, **kw):
+        out = real(tree, edges, weights, m, **kw)
+        want = real({n: t.cpu() for n, t in tree.items()}, edges.cpu(),
+                    weights.cpu(), m, **kw)
+        for n, t in out.items():
+            assert t.is_cuda and torch.equal(t.cpu(), want[n]), n
+        checked.append(len(out))
+        return out
+
+    monkeypatch.setattr(rounds_mod, "robust_row_aggregate", spy)
+    ops.reset_launch_counts()
+    state, met = strat.round(strat.init(0), train, (0, 0))
+    assert checked and ops.launch_counts()["select_topk"] == 1
+    assert set(state) == {"inner", "alive"}
+    assert torch.isfinite(met["adv_isolation"]).all()
+
+
+@pytest.mark.cuda
+def test_checkpoint_roundtrip_of_card_tensors(cuda, tmp_path):
+    """bf16, f32, int32 and bool tensors on the card save and restore onto
+    the card bit for bit."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": torch.randn(64, 33, generator=g, device=cuda).to(
+                torch.bfloat16),
+            "nested": {"b": torch.randn(7, generator=g, device=cuda),
+                       "i": torch.arange(5, device=cuda,
+                                         dtype=torch.int32)},
+            "list": [torch.rand(3, 3, generator=g, device=cuda) > 0.5]}
+    path = save_checkpoint(str(tmp_path), 1, tree)
+    got, _ = load_checkpoint(path, like=tree)
+    for a, b in ((got["w"], tree["w"]), (got["nested"]["b"],
+                                         tree["nested"]["b"]),
+                 (got["nested"]["i"], tree["nested"]["i"]),
+                 (got["list"][0], tree["list"][0])):
+        assert a.is_cuda and a.dtype == b.dtype
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_checkpoint_restore_keeps_host_scalars_on_the_host(cuda, tmp_path):
+    """A PopulationState on the card restores onto the card, its round
+    (kept on the host by design) onto the host."""
+    import dataclasses
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.fl.strategies import make_strategy
+    from repro_torch.utils.pytree import tree_paths
+
+    cfg = dataclasses.replace(get_config("resnet18-cifar").reduced(),
+                              image_size=8)
+    state = make_strategy("pfeddst", cfg, FLConfig(num_clients=3), 1,
+                          device=cuda).init(0)
+    assert not state.round.is_cuda and state.loss_matrix.is_cuda
+    got, _ = load_checkpoint(save_checkpoint(str(tmp_path), 0, state),
+                             like=state)
+    for (_, a), (_, b) in zip(tree_paths(got), tree_paths(state)):
+        assert a.device == b.device and a.dtype == b.dtype
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b)

@@ -492,8 +492,9 @@ def test_gather_neighbors_views_each_neighbourhood():
 @pytest.mark.parametrize("refusal", ["sparse_star", "serve", "device_profile",
                                      "threat"])
 def test_refusals(refusal):
-    """The reference's refusal of a packed fabric with a star strategy and
-    the field of a layer not ported (threat, item 11). Since the
+    """The reference's refusal of a packed fabric with a star strategy, and
+    of an unknown attack in a ThreatConfig (the open world, item 11, is
+    ported: a valid threat runs, on a packed fabric too). Since the
     semi-async layer's port, stale_mode="serve" with p_stale > 0 and a
     device profile are accepted as in the reference: a non-versioned
     strategy warns that stale peers serve live parameters
@@ -521,18 +522,23 @@ def test_refusals(refusal):
                 num_clients=6, device_profile=prof,
                 comms=CommsConfig(topology="ring", sparse=True)),
                 device="cpu")
+    elif refusal == "threat":
+        from repro_torch.configs import ThreatConfig
+
+        with pytest.raises(ValueError, match="unknown attack"):
+            ThreatConfig(attack="bogus")
+        strat = strategies.make_strategy("dispfl", cfg, FLConfig(
+            num_clients=6, threat=ThreatConfig(adversary_fraction=0.5,
+                                               attack="sign_flip"),
+            comms=CommsConfig(topology="ring", sparse=True)), device="cpu")
+        assert "ow_byzantine" in [getattr(s, "stage_name", s.__name__)
+                                  for s in strat.stages]
     else:
-        name, err, match, kw = {
-            "sparse_star": ("fedavg", ValueError, "sparse",
-                            dict(comms=CommsConfig(topology="ring",
-                                                   sparse=True))),
-            "threat": ("dispfl", NotImplementedError, "item 11",
-                       dict(threat=object())),
-        }[refusal]
-        with pytest.raises(err, match=match):
-            strategies.make_strategy(name, cfg, FLConfig(num_clients=6,
-                                                         **kw),
-                                     device="cpu")
+        with pytest.raises(ValueError, match="sparse"):
+            strategies.make_strategy("fedavg", cfg, FLConfig(
+                num_clients=6, comms=CommsConfig(topology="ring",
+                                                 sparse=True)),
+                device="cpu")
     # serve mode without staleness events is accepted (nothing is stale)
     strategies.make_strategy("dfedavgm", cfg, FLConfig(
         num_clients=6, comms=CommsConfig(stale_mode="serve")), device="cpu")

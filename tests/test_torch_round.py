@@ -224,18 +224,27 @@ def test_entry_point_without_device_needs_cuda(setup, monkeypatch, entry):
         call()
 
 
-def test_unported_options_raise():
-    """The open-world layer (queue 1 item 11) is still refused, by every
-    strategy, pfeddst_async included; the semi-async layer (item 9) is
-    not any more."""
+def test_unported_options_raise(monkeypatch):
+    """Every layer of FLConfig is ported since the open world (queue 1
+    item 11): its threat and churn configs run under every strategy,
+    pfeddst_async included, and the semi-async layer (item 9) too. The
+    refusal stays for a field that a later layer may add."""
+    from repro_torch.configs import ChurnConfig, ThreatConfig
+    from repro_torch.fl import strategies
     from repro_torch.fl.strategies import make_strategy
 
     cfg = get_config("resnet18-cifar").reduced()
+    assert strategies.NOT_PORTED_FIELDS == {}
     for name in ("pfeddst", "pfeddst_async"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            make_strategy(name, cfg, FLConfig(num_clients=4,
-                                              threat=object()),
-                          device="cpu")
+        strat = make_strategy(name, cfg, FLConfig(
+            num_clients=4, threat=ThreatConfig(adversary_fraction=0.5,
+                                               attack="sign_flip"),
+            churn=ChurnConfig(join_rate=0.1)), device="cpu")
+        assert set(strat.init(0)) == {"inner", "alive"}
+    monkeypatch.setattr(strategies, "NOT_PORTED_FIELDS", {"churn": 12})
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        make_strategy("pfeddst", cfg, FLConfig(
+            num_clients=4, churn=ChurnConfig()), device="cpu")
     strat = make_strategy("pfeddst_async", cfg, FLConfig(num_clients=4),
                           device="cpu")
     assert strat.versioned and len(strat.stages) == 7
@@ -252,8 +261,9 @@ def _port_sources():
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_nothing_of_the_reference(path):
-    """The port and chip_smoke.py import torch/numpy, never jax and
-    nothing of `repro` (other than `repro_torch`)."""
+    """The port and chip_smoke.py import torch/numpy, never jax, nothing
+    of `repro` (other than `repro_torch`) and not `ml_dtypes` (the card
+    machine has no jax, so it may lack ml_dtypes)."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -264,4 +274,5 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(path):
             continue
         for n in names:
             top = n.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (path, n)
+            assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+                (path, n)

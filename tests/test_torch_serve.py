@@ -112,6 +112,69 @@ def test_flash_attention_plain_matches_pallas_and_oracle(case, dtype):
         _close_to_scale(port_ref, np.asarray(want_ref), 1e-5)
 
 
+# (B, Sq, Skv, H, K, hd, causal, window, q_offset): hd off the kernel's
+# instances (padded to 64, 128 or 256) and at 256 (recurrentgemma-2b)
+FLASH_PAD_CASES = [
+    (1, 40, 40, 2, 1, 8, True, 0, 0),
+    (1, 77, 130, 4, 4, 96, True, 16, 53),
+    (2, 50, 90, 4, 2, 200, False, 0, 0),
+    (1, 140, 140, 2, 1, 256, True, 64, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_PAD_CASES,
+                         ids=lambda c: "b{}-q{}-kv{}-h{}-k{}-d{}-c{}-w{}-o{}"
+                         .format(*(int(x) for x in c)))
+def test_flash_attention_padded_route_equals_unpadded(case, dtype):
+    """The route the CUDA wrapper takes for a head dim between the kernel
+    instances — q, k, v zero-padded to the next instance, the scale of
+    the true head dim, the padded columns dropped — through the plain
+    version equals the plain version on the unpadded inputs: f32 within
+    1e-6 of max(1, max|out|), bf16 within one bf16 ulp; and the Pallas
+    kernel (any hd) within 1e-5 (f32) or one ulp (bf16)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_padded, padded_head_dim)
+
+    b, sq, skv, h, kh, hd, causal, window, q_offset = case
+    rng = np.random.default_rng(sum(case))
+    q = rng.normal(size=(b, sq, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, skv, kh, hd)).astype(np.float32)
+    v = rng.normal(size=(b, skv, kh, hd)).astype(np.float32)
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    tq, tk, tv = (_torch(a, tdt) for a in (q, k, v))
+    seen = []
+
+    def plain(*args, **kwargs):
+        seen.append(args[0].shape[-1])
+        return flash_attention_plain(*args, **kwargs)
+
+    got = flash_attention_padded(plain, tq, tk, tv, **kw)
+    assert seen == [padded_head_dim(hd)] and got.shape == (b, sq, h, hd)
+    assert got.dtype == tdt
+    want = flash_attention_plain(tq, tk, tv, **kw)
+    pallas = np.asarray(pallas_flash(*(jnp.asarray(a, jdt) for a in
+                                       (q, k, v)), interpret=True,
+                                     **kw).astype(jnp.float32))
+    if dtype == "float32":
+        _close_to_scale(got.numpy(), want.numpy(), 1e-6)
+        _close_to_scale(got.numpy(), pallas, 1e-5)
+    else:
+        _one_ulp(got.float().numpy(), want.float().numpy())
+        _one_ulp(got.float().numpy(), pallas)
+
+
+def test_flash_attention_head_dims_past_256_raise():
+    from repro_torch.kernels.flash_attention import padded_head_dim
+
+    assert [padded_head_dim(d) for d in (1, 64, 65, 128, 129, 256)] == \
+        [64, 64, 128, 128, 256, 256]
+    with pytest.raises(ValueError, match="up to 256"):
+        padded_head_dim(257)
+
+
 def test_flash_attention_plain_fully_masked_rows_are_zero():
     """A window and offset that hide every key from the first rows: the
     online softmax keeps p = 0 and l floored, so those rows are 0, as in
