@@ -212,12 +212,45 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             prompt 512, 16 tokens, 1 request) serves the saved
             parameters' greedy tokens. The checkpoints go to the
             gitignored `.smoke_ckpt/` (GBs) and are removed.
+9. driver   the experiment drivers and chunked rounds, the launch counters
+            set to 0 just before each run and read just after. (a0) the
+            user's command unpatched at the CLI's own lr 0.1:
+            `--paper-scale --rounds 5 --strategies pfeddst`, one chunk;
+            the eval at round 5 with a finite accuracy, the loss printed
+            as read. (a) the CLI at full width: `repro_torch.examples.fl_cifar_sim.main` on
+            `--paper-scale --rounds 6 --strategies pfeddst dfedpgp
+            dispfl` (full ResNet-18, bf16, M=16, the default chunk of 5:
+            two chunks a strategy, 5 rounds and 1; all three at the
+            baselines' lr 0.01 of phase 3: over 10 rounds at 0.1 pfeddst
+            diverges too, in both packages,
+            tests/test_torch_lr_divergence.py): losses and accuracy
+            finite at rounds 5 and 6, gossip_mix 6 launches in 6 dfedpgp
+            rounds, mask_evolve 6 calls over 6 × 56 leaves in 6 dispfl
+            rounds; the steady per-round wall (the second chunk's)
+            beside phase 3's. (b) chunk parity
+            under deterministic algorithms: `run_experiment("pfeddst")` at
+            phase 3's settings (select_topk), 4 rounds, eval_every 4,
+            chunk_rounds=4 against chunk_rounds=1, and dfedavgm on phase
+            6's ring (gossip_mix) at 2 rounds: every History field but the
+            walls equal, the final state bitwise equal, the kernel
+            launched once a round in each run. (c) host synchronisations
+            (torch.cuda.set_sync_debug_mode("warn")) for pfeddst and
+            dfedpgp: 2 make_round calls against one make_multi_round
+            chunk of 2 from the same state and keys (the chunk must add
+            none; the per-round run's sync locations are printed), and
+            whole runs per round against chunked. (d) the quickstart twin
+            (`repro_torch.examples.quickstart`) on the card. (e) what a
+            chunk costs: pfeddst at phase 3's settings, 2 rounds, per
+            round and as one chunk of 2 in turns, 3 runs of each; the
+            medians of the run's wall and of its rounds' wall, per round,
+            and each back-to-back pair's chunked / per-round ratio.
 
 Output: each phase's wall, the card's name and power limit (nvidia-smi),
 one `kernels` JSON line (`launches` from phase 3's run of the kernel's
 path, `launches_fabric` from each phase-6 run, select_topk's
 `launches_async` from phase 7 (b); `launches_openworld` of select_topk,
-gossip_mix and mask_evolve from each phase-8 run; flash's `hd256` row
+gossip_mix and mask_evolve from each phase-8 run; `launches_driver` of
+the same three from each phase-9 run; flash's `hd256` row
 from phase 2; mask_evolve's count calls,
 each of 3–5 kernel launches, and its row also gives the leaves those
 calls covered and the whole stage's time and device time; select_topk's
@@ -230,6 +263,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -283,6 +317,29 @@ WKV_KERNELS = ("wkv_state_kernel", "wkv_output_kernel")
 PTXAS_KERNELS = WKV_KERNELS + ("histogram_kernel", "apply_kernel",
                                "select_tile_kernel", "select_partial_kernel",
                                "select_merge_kernel")
+
+
+class deterministic:
+    """torch.use_deterministic_algorithms (warn only) and cuDNN
+    deterministic, the settings of phases 7 (a), 8 (a) and 9 (b);
+    restored on exit."""
+
+    def __enter__(self):
+        import torch
+
+        self.flags = (torch.are_deterministic_algorithms_enabled(),
+                      torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.use_deterministic_algorithms(self.flags[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = self.flags[1:]
 
 
 def ptxas_report(log: str) -> dict:
@@ -1687,22 +1744,11 @@ def check_async_identity(cfg, fl, train, dev, rounds=3) -> dict:
             mets.append(met)
         return state, masks, mets
 
-    flags = (torch.are_deterministic_algorithms_enabled(),
-             torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
-        True, False
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            sync1, masks1, _ = run("pfeddst", "pfeddst")
-            asyn, masks_a, mets_a = run("pfeddst_async", "pfeddst_async")
-            sync2, masks2, _ = run("pfeddst", "pfeddst_again")
-    finally:
-        torch.use_deterministic_algorithms(flags[0])
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
-            = flags[1:]
+    with deterministic(), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sync1, masks1, _ = run("pfeddst", "pfeddst")
+        asyn, masks_a, mets_a = run("pfeddst_async", "pfeddst_async")
+        sync2, masks2, _ = run("pfeddst", "pfeddst_again")
     compare_masks("pfeddst_async against pfeddst", masks1, masks_a)
     compare_masks("pfeddst against pfeddst", masks1, masks2)
     for met in mets_a:
@@ -2043,8 +2089,6 @@ def check_open_identity(cfg, fl, train, dev, rounds=3) -> dict:
     within the spread of two plain runs)."""
     import warnings
 
-    import torch
-
     from repro_torch.configs import ChurnConfig, ThreatConfig
     from repro_torch.fl import strategies
     from repro_torch.obs.timers import stage_name
@@ -2052,11 +2096,11 @@ def check_open_identity(cfg, fl, train, dev, rounds=3) -> dict:
 
     inert = dataclasses.replace(fl, threat=ThreatConfig(),
                                 churn=ChurnConfig())
-    init, stages, _, meta = strategies._pfeddst_spec(cfg, inert, 2,
-                                                     "pfeddst", dev)
-    got = make_open_spec(init, stages, meta, inert, device=dev)
-    if not (got[0] is init and got[1] is stages and got[2] is meta):
-        raise AssertionError("open world: inert configs wrapped the stages")
+    spec = strategies._pfeddst_spec(cfg, inert, 2, "pfeddst", dev)
+    got = make_open_spec(spec, inert, device=dev)
+    if not (got is spec and got.init is spec.init
+            and got.stages is spec.stages):
+        raise AssertionError("open world: inert configs wrapped the spec")
     plain_names = [stage_name(s) for s in strategies.make_strategy(
         "pfeddst", cfg, fl, 2, device=dev).stages]
     if [stage_name(s) for s in strategies.make_strategy(
@@ -2077,22 +2121,11 @@ def check_open_identity(cfg, fl, train, dev, rounds=3) -> dict:
             masks.append(met["select_mask"].cpu())
         return state, masks, [stage_name(s) for s in strat.stages]
 
-    flags = (torch.are_deterministic_algorithms_enabled(),
-             torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
-        True, False
-    try:
-        with warnings.catch_warnings(record=True):
-            warnings.simplefilter("always")
-            base, masks0, _ = run(fl)
-            outs = {k: run(v) for k, v in wraps.items()}
-            again, masks1, _ = run(fl)
-    finally:
-        torch.use_deterministic_algorithms(flags[0])
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
-            = flags[1:]
+    with deterministic(), warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        base, masks0, _ = run(fl)
+        outs = {k: run(v) for k, v in wraps.items()}
+        again, masks1, _ = run(fl)
     compare_masks("pfeddst against pfeddst", masks0, masks1)
     spread = {f: _tree_diff(a, _state_fields(again)[f])
               for f, a in _state_fields(base).items()}
@@ -2588,6 +2621,359 @@ def openworld_phase(cfg, fl, data, dev, run_experiment, ops,
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the experiment drivers and chunked rounds
+# ---------------------------------------------------------------------------
+
+# 6 of the reference's 60 rounds: the first chunk of 5 and a second of 1
+# (the CLI's eval_every is 5), so phase 9 keeps to its 120 s on a slow
+# host
+CLI_ROUNDS = 6
+CLI_ARGV = ["--paper-scale", "--rounds", str(CLI_ROUNDS), "--strategies",
+            "pfeddst", "dfedpgp", "dispfl"]
+CLI_KERNELS = {"dfedpgp": "gossip_mix", "dispfl": "mask_evolve"}
+
+
+def run_cli(ops, phase3_walls) -> dict:
+    """Phase 9 (a): the driver's CLI at full width (`CLI_ARGV`: full
+    ResNet-18, bf16, M=16, the default chunk of 5, so two chunks a
+    strategy: 5 rounds, then 1). The driver's run_experiment is wrapped to set the launch
+    counters to 0 just before each strategy's run and read them just after,
+    and to run every strategy at BASELINE_LR: at the paper's 0.1,
+    pfeddst's bf16 steps diverge within 10 rounds (on the card a
+    10-round run reached NaN; (a0) reads the loss at round 5), and so
+    they do at reduced depth in both packages on the CPU
+    (tests/test_torch_lr_divergence.py: losses in the tens from round 1,
+    then NaN or ~1e17–1e35 at round 10), so a finite-loss check needs the
+    lower rate.
+    Losses and accuracy finite at rounds 5 and 6; gossip_mix 6 launches
+    in 6 dfedpgp rounds, mask_evolve 6 calls over 6 × 56 leaves in 6
+    dispfl rounds. The steady per-round wall is the second chunk's wall
+    over its rounds."""
+    from repro_torch.examples import fl_cifar_sim
+
+    real = fl_cifar_sim.run_experiment
+    launches = {}
+
+    def counted(name, cfg, fl, data, **kw):
+        fl = dataclasses.replace(fl, lr=BASELINE_LR)
+        ops.reset_launch_counts()
+        hist = real(name, cfg, fl, data, **kw)
+        launches[name] = {**ops.launch_counts(),
+                          "leaves": ops.KERNELS["mask_evolve"].leaves}
+        return hist
+
+    fl_cifar_sim.run_experiment = counted
+    try:
+        t0 = time.perf_counter()
+        hists = fl_cifar_sim.main(CLI_ARGV)
+        total = time.perf_counter() - t0
+    finally:
+        fl_cifar_sim.run_experiment = real
+    rows = {}
+    for name, hist in hists.items():
+        h = hist.to_dict()
+        if h["rounds"] != [5, CLI_ROUNDS] or not all(
+                math.isfinite(v) for v in h["train_loss"] + h["accuracy"]):
+            raise AssertionError(f"cli {name}: rounds {h['rounds']}, loss "
+                                 f"{h['train_loss']}, acc {h['accuracy']}")
+        kernel = CLI_KERNELS.get(name)
+        if kernel is not None and launches[name][kernel] != CLI_ROUNDS:
+            raise AssertionError(f"cli {name}: {kernel} launched "
+                                 f"{launches[name][kernel]} times in "
+                                 f"{CLI_ROUNDS} rounds")
+        if (kernel == "mask_evolve"
+                and launches[name]["leaves"] != CLI_ROUNDS * 56):
+            raise AssertionError(f"cli dispfl: mask_evolve covered "
+                                 f"{launches[name]['leaves']} leaves, "
+                                 f"expected {CLI_ROUNDS} × 56")
+        steady = phase3_walls[name][1:]
+        rows[name] = dict(
+            accuracy=h["accuracy"], train_loss=h["train_loss"],
+            first_chunk_s=h["compile_s"],
+            steady_round_s=h["wall_s"][-1] / (CLI_ROUNDS - 5),
+            phase3_steady_round_s=sum(steady) / len(steady),
+            launches={k: v for k, v in launches[name].items() if v})
+    return dict(argv=CLI_ARGV, lr=BASELINE_LR, total_s=total, runs=rows)
+
+
+def run_cli_own_lr() -> dict:
+    """Phase 9 (a0): the user's command itself, nothing patched:
+    `--paper-scale --rounds 5 --strategies pfeddst` at the CLI's own lr
+    (the paper's 0.1), one chunk of 5. Held to what that lr allows: the
+    History's one eval point at round 5 with a finite accuracy in
+    [0, 1]. Its train loss is printed, finite or not: at this lr the
+    reduced-depth runs of both packages diverge
+    (tests/test_torch_lr_divergence.py), so the card's loss is a reading,
+    not a check."""
+    from repro_torch.examples import fl_cifar_sim
+
+    argv = ["--paper-scale", "--rounds", "5", "--strategies", "pfeddst"]
+    t0 = time.perf_counter()
+    h = fl_cifar_sim.main(argv)["pfeddst"].to_dict()
+    total = time.perf_counter() - t0
+    acc = h["accuracy"]
+    if h["rounds"] != [5] or not all(math.isfinite(a) and 0 <= a <= 1
+                                     for a in acc):
+        raise AssertionError(f"cli at its own lr: rounds {h['rounds']}, "
+                             f"accuracy {acc}")
+    return dict(argv=argv, lr=0.1, accuracy=acc,
+                train_loss=h["train_loss"],
+                loss_finite=all(math.isfinite(v) for v in h["train_loss"]),
+                total_s=total)
+
+
+def chunk_cost(name, cfg, fl, data, dev, rounds=2, pairs=3) -> dict:
+    """Phase 9 (e): what chunking costs or saves. The same cell
+    (`run_experiment(name)` at phase 3's settings, `rounds` rounds, one
+    eval at the end) per round and in one chunk of `rounds`, in turns
+    (per round first in even pairs, chunked first in odd ones), `pairs`
+    runs of each: the medians of the whole run's wall (init, rounds,
+    readback, eval) and of the rounds' own wall (`History.compile_s` plus
+    the steady wall), per round, and each pair's chunked / per-round
+    ratio of the rounds' wall (the two runs of a pair are back to back,
+    so a drift of the shared host across the pairs cancels)."""
+    from repro_torch.fl.simulator import run_experiment
+
+    walls = {1: [], rounds: []}
+    for i in range(pairs):
+        for chunk in ((1, rounds) if i % 2 == 0 else (rounds, 1)):
+            t0 = time.perf_counter()
+            h = run_experiment(name, cfg, fl, data, num_rounds=rounds,
+                               eval_every=rounds, steps_per_epoch=2, seed=0,
+                               verbose=False, device=dev,
+                               chunk_rounds=chunk).to_dict()
+            walls[chunk].append(dict(
+                run_s=time.perf_counter() - t0,
+                rounds_s=h["compile_s"] + h["wall_s"][-1]))
+
+    def median_per_round(chunk, key):
+        return statistics.median(w[key] for w in walls[chunk]) / rounds
+
+    ratios = [c["rounds_s"] / p["rounds_s"]
+              for c, p in zip(walls[rounds], walls[1])]
+    return dict(name=name, rounds=rounds, pairs=pairs, walls=walls,
+                pair_ratios=ratios,
+                median_pair_ratio=statistics.median(ratios),
+                median_run_s_per_round={
+                    "per_round": median_per_round(1, "run_s"),
+                    "chunked": median_per_round(rounds, "run_s")},
+                median_rounds_s_per_round={
+                    "per_round": median_per_round(1, "rounds_s"),
+                    "chunked": median_per_round(rounds, "rounds_s")})
+
+
+def _capture_final_state(simulator):
+    """Wrap simulator.make_strategy so the strategy's params_for_eval keeps
+    the last state it is given: with one eval point at the last round,
+    that is the run's final state. → (restore function, holder)."""
+    real = simulator.make_strategy
+    held = {}
+
+    def make(*args, **kw):
+        strat = real(*args, **kw)
+        inner = strat.params_for_eval
+
+        def params_for_eval(state):
+            held["state"] = state
+            return inner(state)
+
+        return dataclasses.replace(strat, params_for_eval=params_for_eval)
+
+    simulator.make_strategy = make
+
+    def restore():
+        simulator.make_strategy = real
+
+    return restore, held
+
+
+def check_chunk_parity(name, cfg, fl, data, rounds, dev, ops,
+                       kernel) -> dict:
+    """Phase 9 (b): run_experiment with chunk_rounds=rounds against
+    chunk_rounds=1 (eval_every=rounds), under deterministic algorithms:
+    every History field but the walls equal, the final state bitwise
+    equal, `kernel` launched once a round in each run."""
+    import torch
+
+    from repro_torch.fl import simulator
+    from repro_torch.utils.pytree import tree_paths
+
+    out = {}
+    restore, held = _capture_final_state(simulator)
+    try:
+        with deterministic():
+            for chunk in (rounds, 1):
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                hist = simulator.run_experiment(
+                    name, cfg, fl, data, num_rounds=rounds,
+                    eval_every=rounds, steps_per_epoch=2, seed=0,
+                    verbose=False, device=dev, chunk_rounds=chunk)
+                out[chunk] = dict(hist=hist.to_dict(), state=held["state"],
+                                  launches=ops.launch_counts()[kernel],
+                                  wall_s=time.perf_counter() - t0)
+    finally:
+        restore()
+    a, b = out[rounds], out[1]
+    for key in set(a["hist"]) - {"wall_s", "compile_s"}:
+        if a["hist"][key] != b["hist"][key]:
+            raise AssertionError(f"{name}: chunked History {key} "
+                                 f"{a['hist'][key]} != {b['hist'][key]}")
+    pa, pb = tree_paths(a["state"]), tree_paths(b["state"])
+    if [p for p, _ in pa] != [p for p, _ in pb]:
+        raise AssertionError(f"{name}: final states differ in layout")
+    for (path, x), (_, y) in zip(pa, pb):
+        same = (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                else x == y)
+        if not same:
+            raise AssertionError(f"{name}: final state {path} differs "
+                                 "between the chunked and per-round runs")
+    for chunk in (rounds, 1):
+        if out[chunk]["launches"] != rounds:
+            raise AssertionError(f"{name}: {kernel} launched "
+                                 f"{out[chunk]['launches']} times in "
+                                 f"{rounds} rounds (chunk {chunk})")
+    return dict(name=name, rounds=rounds, kernel=kernel,
+                launches_chunked=a["launches"], launches_per_round=
+                b["launches"], history_equal=True, state_bitwise=True,
+                leaves=len(pa), accuracy=a["hist"]["accuracy"],
+                wall_s={"chunked": a["wall_s"], "per_round": b["wall_s"]})
+
+
+def count_syncs(fn):
+    """Run fn() with torch.cuda.set_sync_debug_mode("warn"), catching the
+    warnings: → (fn's result, the synchronising calls as "file:line")."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    return out, where
+
+
+def check_syncs(name, cfg, fl, data, dev, rounds=2) -> dict:
+    """Phase 9 (c): host synchronisations counted in `rounds` make_round
+    calls and in one make_multi_round chunk of `rounds` (same keys, fresh
+    states): the chunk may add none. The same for whole run_experiment
+    runs, per round and chunked (these include the init, the data's copy
+    and one eval). Per-round locations of the make_round run are
+    printed."""
+    from collections import Counter
+
+    from repro_torch.fl import engine
+    from repro_torch.fl.simulator import run_experiment
+    from repro_torch.fl.strategies import make_strategy
+
+    strat = make_strategy(name, cfg, fl, 2, device=dev)
+    train = {"images": data["train_x"].to(dev),
+             "labels": data["train_y"].to(dev)}
+    multi = engine.make_multi_round(strat.spec, fl, strat.fabric,
+                                    chunk_rounds=rounds)
+
+    def per_round(state):
+        for r in range(rounds):
+            state, _ = strat.round(state, train, (0, r))
+        return state
+
+    _, seq = count_syncs(lambda: per_round(strat.init(0)))
+    state0 = strat.init(0)
+    _, chunk = count_syncs(lambda: multi(state0, train, 0, 0))
+    state0 = strat.init(0)
+    _, seq_only = count_syncs(lambda: per_round(state0))
+    runs = {}
+    for c in (1, rounds):
+        _, runs[c] = count_syncs(lambda c=c: run_experiment(
+            name, cfg, fl, data, num_rounds=rounds, eval_every=rounds,
+            steps_per_epoch=2, seed=0, verbose=False, device=dev,
+            chunk_rounds=c))
+    if len(chunk) > len(seq_only) or len(runs[rounds]) > len(runs[1]):
+        raise AssertionError(
+            f"{name}: the chunk adds host syncs: {len(chunk)} in a chunk "
+            f"of {rounds} against {len(seq_only)} in {rounds} rounds; "
+            f"runs {len(runs[rounds])} chunked against {len(runs[1])}")
+    return dict(name=name, rounds=rounds,
+                rounds_syncs=len(seq_only), chunk_syncs=len(chunk),
+                per_round_syncs=len(seq_only) / rounds,
+                run_syncs={"per_round": len(runs[1]),
+                           "chunked": len(runs[rounds])},
+                where=dict(Counter(seq_only).most_common()),
+                where_chunk_only=sorted(set(chunk) - set(seq_only)),
+                where_with_init=len(seq))
+
+
+def driver_phase(cfg, fl, data, dev, ops, phase3_walls) -> dict:
+    """Phase 9 (module docstring); prints its rows and returns the launch
+    counts of each kernel in the driver runs."""
+    from repro_torch.configs import CommsConfig
+    from repro_torch.examples import quickstart
+
+    own = run_cli_own_lr()
+    print("driver cli at its own lr", json.dumps(own), flush=True)
+    cli = run_cli(ops, phase3_walls)
+    print("driver cli", json.dumps(cli), flush=True)
+    for name, row in cli["runs"].items():
+        steady, phase3 = row["steady_round_s"], row["phase3_steady_round_s"]
+        print(f"driver cli {name}: steady round {steady:.4f} s (second "
+              f"chunk, per round), phase 3's {phase3:.4f} s per round",
+              flush=True)
+    fl_ring = dataclasses.replace(fl, comms=CommsConfig(**FABRIC_NET),
+                                  lr=BASELINE_LR)
+    parity = [check_chunk_parity("pfeddst", cfg, fl, data, 4, dev, ops,
+                                 "select_topk"),
+              check_chunk_parity("dfedavgm", cfg, fl_ring, data, 2, dev, ops,
+                                 "gossip_mix")]
+    for row in parity:
+        print("driver chunk parity", json.dumps(row), flush=True)
+    syncs = [check_syncs("pfeddst", cfg, fl, data, dev),
+             check_syncs("dfedpgp", cfg,
+                         dataclasses.replace(fl, lr=BASELINE_LR), data, dev)]
+    for row in syncs:
+        print("driver host syncs", json.dumps(row), flush=True)
+    t0 = time.perf_counter()
+    quick = quickstart.main([])
+    mask = quick["metrics"]["select_mask"]
+    if not (math.isfinite(quick["accuracy"]) and mask.is_cuda
+            and tuple(mask.shape) == (6, 6)):
+        raise AssertionError(f"quickstart: accuracy {quick['accuracy']}, "
+                             f"select_mask {tuple(mask.shape)} on "
+                             f"{mask.device}")
+    print("driver quickstart", json.dumps(
+        {"accuracy": quick["accuracy"],
+         "wall_s": time.perf_counter() - t0}), flush=True)
+    cost = chunk_cost("pfeddst", cfg, fl, data, dev)
+    print("driver chunk cost", json.dumps(cost), flush=True)
+    for key in ("median_run_s_per_round", "median_rounds_s_per_round"):
+        per_round, chunked = (cost[key]["per_round"], cost[key]["chunked"])
+        print(f"driver chunk cost {key}: per round {per_round:.4f} s, "
+              f"chunked {chunked:.4f} s ({chunked / per_round:.3f}x)",
+              flush=True)
+    print(f"driver chunk cost pair ratios (chunked / per round, rounds' "
+          f"wall): {[round(r, 3) for r in cost['pair_ratios']]}, median "
+          f"{cost['median_pair_ratio']:.3f}", flush=True)
+    return {
+        "select_topk": {"chunk_parity_chunked": parity[0][
+            "launches_chunked"], "chunk_parity_per_round": parity[0][
+            "launches_per_round"]},
+        "gossip_mix": {"cli_dfedpgp": cli["runs"]["dfedpgp"]["launches"][
+            "gossip_mix"], "chunk_parity_ring_chunked": parity[1][
+            "launches_chunked"], "chunk_parity_ring_per_round": parity[1][
+            "launches_per_round"]},
+        "mask_evolve": {"cli_dispfl": cli["runs"]["dispfl"]["launches"][
+            "mask_evolve"], "cli_dispfl_leaves": cli["runs"]["dispfl"][
+            "launches"]["leaves"]},
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -2869,6 +3255,14 @@ def main() -> int:
     walls["8 openworld"] = time.perf_counter() - t_phase
     print(f"phase 8 wall: {walls['8 openworld']:.1f} s", flush=True)
 
+    t_phase = time.perf_counter()
+    # ---- 9. the experiment drivers and chunked rounds ------------------------
+    launches_driver = driver_phase(
+        cfg, fl, data, dev, ops, {r["name"]: r["round_walls_s"]
+                                  for r in paths})
+    walls["9 driver"] = time.perf_counter() - t_phase
+    print(f"phase 9 wall: {walls['9 driver']:.1f} s", flush=True)
+
     # ---- output -------------------------------------------------------------
     k_main = main_sel[-1]
     assert k_main["matrix_cost"] and k_main["cand"]
@@ -2950,6 +3344,8 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in launches_ow:
             entry["launches_openworld"] = launches_ow[entry["name"]]
+        if entry["name"] in launches_driver:
+            entry["launches_driver"] = launches_driver[entry["name"]]
     print("round walls (s):", json.dumps(
         {r["name"]: r["round_walls_s"] for r in paths}), flush=True)
     print("serving (s, tokens/s):", json.dumps(

@@ -1,7 +1,9 @@
-"""Round engine for decentralized FL — reference `repro.fl.engine`
-(without the chunked scan path `make_multi_round`).
+"""Round engine for decentralized FL — reference `repro.fl.engine`.
 
-A round is an ordered tuple of stages `(state, ctx) -> state` run by
+A strategy is data, a `StrategySpec` (init, ordered stages, stream
+layout, exchange metadata); `make_round` turns it into one round function
+and `make_multi_round` into a chunk of rounds with stacked metrics. A
+round is the spec's stages `(state, ctx) -> state` run by
 `run_round`, which owns participation (client sampling × the comms
 fabric's availability), the named random streams, the network hooks
 (candidate mask, Eq. 9 cost matrix, the packed neighbour view of a
@@ -48,7 +50,7 @@ churn or an attack changes no other stream's draws.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -208,7 +210,7 @@ def train_sampled(ctx, step, trained, frozen, opt_state, stream: str,
 
     (new, opt), losses = scan_train(
         apply, (trained, opt_state), data_sub, ctx.streams[stream],
-        n_steps, batch_size, rows=ctx.sampled_idx.cpu(), total=ctx.m,
+        n_steps, batch_size, rows=ctx.sampled_rows(), total=ctx.m,
         idx=ctx.draw(stream))
     return new, opt, losses
 
@@ -255,7 +257,10 @@ class RoundContext:
     streams      named CPU torch.Generators (the strategy's stream layout)
     draws        injected draws by stream name (see module docstring)
     active       (M,) bool — the clients sampled and online this round
-    sampled_idx  (n,) int64 sampled client ids
+    sampled_idx  (n,) int64 sampled client ids, on the data's device
+    sampled_host the same ids on the CPU (None when a caller built the
+                 context without them): the draw is made on the host, so
+                 reading it back needs no copy from the device
     cand         (M, M) bool reachable peers from the comms fabric (None
                  without a network model)
     cand_bounded True only when `cand` is cut from a fabric's static graph,
@@ -301,6 +306,7 @@ class RoundContext:
     sampled_idx: Any
     draws: dict = field(default_factory=dict)
     key: tuple = ()
+    sampled_host: Any = None
     cand: Any = None
     cand_bounded: bool = False
     nbr: Any = None
@@ -319,6 +325,13 @@ class RoundContext:
         metrics; scalars reach History.extra by name."""
         self.metrics[name] = value
 
+    def sampled_rows(self):
+        """The sampled ids on the CPU: the host copy where run_round kept
+        one, else copied back from the device."""
+        if self.sampled_host is not None:
+            return self.sampled_host
+        return self.sampled_idx.cpu()
+
     def draw(self, stream: str):
         """The injected draw for `stream`, or None."""
         return self.draws.get(stream)
@@ -334,6 +347,84 @@ class RoundContext:
         return u.to(device, torch.float32)
 
 
+@dataclass(frozen=True)
+class StrategySpec:
+    """A strategy as data: init + ordered stages + exchange metadata.
+
+    A new strategy should be writable from this docstring alone (the
+    reference's docs/architecture.md, "Writing a strategy", works one
+    example).
+
+    init : (seed: int) -> state
+        Builds the strategy state on the strategy's device. Where the
+        reference takes a jax PRNG key, the port takes an int seed and
+        draws from torch.Generators seeded by it. Per-client leaves carry
+        a leading (M, ...) client axis; other leaves (round counters, a
+        `fl.hetero.PeerStore` with (V, M, ...) leaves) pass through.
+
+    stages : tuple of (state, ctx: RoundContext) -> state
+        Run in order by `run_round`. Contract:
+        - exactly one stage sets `ctx.plan` (the ExchangePlan), before any
+          stage that reads it;
+        - training stages guard updates with `ctx.active` (`where_tree`),
+          so inactive clients keep params AND optimizer state bit for
+          bit;
+        - stages pass values forward through `ctx.aux` and record
+          scalars/arrays into `ctx.metrics` (every key containing "loss"
+          is averaged into History.train_loss by the simulator);
+        - stages draw only from `ctx.streams[<stream>]` (or the injected
+          `ctx.draw(<stream>)`), never from a stream another stage also
+          uses; draws apart from the layout key their own generators by
+          `ctx.key` and a salt (`salted_streams`).
+
+    params_for_eval : (state) -> leading-M params dict
+        The merged per-client model the simulator evaluates.
+
+    key_streams : tuple of stream names, the layout `named_streams`
+        seeds from the round key. ORDER IS PART OF THE SPEC: a stream's
+        seed is its position, so adding or reordering streams changes
+        every stream's draws.
+
+    sample_stream : the stream that samples the participants ("act").
+    comm_pattern : "p2p" | "star" — how `CommsFabric.account_round`
+        prices the round ("p2p" needs edges in the metrics, see below).
+    payload_kind : "extractor" | "model" — what one message carries.
+    payload_fraction : fraction of the payload actually sent (sparse
+        payloads, e.g. DisPFL masks).
+    needs_head_finetune : the simulator fine-tunes a throwaway header
+        copy at eval time (FedBABU semantics).
+    affinity : optional (state) -> (M, M) float steering matrix for the
+        fabric's dynamic topology (higher → keep/rewire toward the edge).
+    versioned : the strategy carries a `fl.hetero.PeerStore` and honours
+        staleness lags by serving published snapshots. Without it,
+        CommsConfig.stale_mode="serve" keeps stale peers selectable but
+        they serve LIVE parameters (make_strategy warns).
+
+    Metrics contract — `run_round` guarantees these keys after the
+    stages ran (stages may set them first):
+      active      (M,) bool  participants (after any deadline gate)
+      stale       (M,) int32 network staleness lag (zeros, no fabric)
+      comm_edges  (M, M) bool p2p pulls — echoed from `ctx.plan.edges`
+                  for p2p plans; selection strategies emit `select_mask`
+                  instead (account_round accepts either).
+    The semi-async stages add round_wall_s, straggler_wall_s (the
+    deadline gate) and eff_lag_mean / eff_lag_max / serve_age_mean
+    (versioned pulls).
+    """
+    name: str
+    init: Callable                          # (seed) -> state
+    stages: tuple                           # ordered (state, ctx) -> state
+    params_for_eval: Callable               # (state) -> leading-M params
+    key_streams: tuple                      # named stream layout
+    sample_stream: str = "act"              # stream sampling participants
+    comm_pattern: str = "p2p"               # "p2p" | "star"
+    payload_kind: str = "extractor"         # "extractor" | "model"
+    payload_fraction: float = 1.0           # sparse payloads (DisPFL masks)
+    needs_head_finetune: bool = False
+    affinity: Optional[Callable] = None     # (state)->(M,M) fabric steering
+    versioned: bool = False                 # carries a hetero PeerStore
+
+
 def _on(x, device, dtype=None):
     """An injected draw (numpy or tensor) as a tensor on `device`."""
     if not isinstance(x, torch.Tensor):
@@ -342,12 +433,13 @@ def _on(x, device, dtype=None):
 
 
 def run_round(stages, state, data, key, *, m: int, ratio: float,
-              key_streams: tuple, draws: dict | None = None, fabric=None,
-              affinity=None, candidate_mask=None, comm_cost=None,
-              available=None):
+              key_streams: tuple, sample_stream: str = "act",
+              draws: dict | None = None, fabric=None, affinity=None,
+              candidate_mask=None, comm_cost=None, available=None):
     """Execute one round's stages under the engine's participate step
-    (the "act" stream samples the participants; a client trains iff it
-    is sampled and online).
+    (the `sample_stream` stream samples the participants, or
+    draws["act"] replaces them; a client trains iff it is sampled and
+    online).
 
     key: the round key (tuple of ints) the named streams derive from;
     draws: optional injected draws by stream name. fabric: a CommsFabric
@@ -387,14 +479,18 @@ def run_round(stages, state, data, key, *, m: int, ratio: float,
         cost = fabric.cost
         cand_bounded = not fabric.is_dynamic
         available = avail if available is None else available & avail
-    idx, active = sample_participants(streams["act"], m, ratio,
-                                      idx=draws.get("act"), device=device)
+    # the draw stays on the host as well (ctx.sampled_host)
+    host_idx, _ = sample_participants(streams[sample_stream], m, ratio,
+                                      idx=draws.get("act"))
+    idx, active = sample_participants(None, m, ratio, idx=host_idx,
+                                      device=device)
     if available is not None:
         active = active & available
     ctx = RoundContext(m=m, data=data, streams=streams, draws=draws,
                        key=tuple(key), active=active, sampled_idx=idx,
-                       cand=cand, cand_bounded=cand_bounded, nbr=nbr,
-                       cost=cost, stale=stale)
+                       sampled_host=host_idx, cand=cand,
+                       cand_bounded=cand_bounded, nbr=nbr, cost=cost,
+                       stale=stale)
     for stage in stages:
         # a profiler span per stage (torch.profiler groups ops by it)
         with annotate(f"stage:{stage_name(stage)}"):
@@ -406,6 +502,126 @@ def run_round(stages, state, data, key, *, m: int, ratio: float,
             and ctx.plan.edges is not None):
         metrics.setdefault("comm_edges", ctx.plan.edges)
     return state, metrics
+
+
+def make_round(spec: StrategySpec, fl, fabric=None):
+    """A StrategySpec as one round function
+
+        (state, data, key, draws=None) -> (state, metrics)
+
+    `run_round` over the spec's stages, its stream layout and sample
+    stream, with the fabric (if any) and the spec's affinity of the
+    incoming state under it. key: the round key (tuple of ints, the
+    simulator's `(seed, round)`); draws: injected draws (module
+    docstring).
+
+    The reference's `jit=` and `client_axis=` have no counterpart here:
+    the port runs eagerly on one device, so there is no round to compile
+    and no client axis to shard. A round consumes its input state where a
+    stage writes in place (the pfeddst_async peer store): rebind the
+    returned state."""
+    m = fl.num_clients
+
+    def round_fn(state, data, key, draws=None):
+        aff = (spec.affinity(state)
+               if fabric is not None and spec.affinity is not None else None)
+        return run_round(spec.stages, state, data, key, m=m,
+                         ratio=fl.client_sample_ratio,
+                         key_streams=spec.key_streams,
+                         sample_stream=spec.sample_stream, draws=draws,
+                         fabric=fabric, affinity=aff)
+
+    return round_fn
+
+
+def make_multi_round(spec: StrategySpec, fl, fabric=None, *,
+                     chunk_rounds: int):
+    """A StrategySpec as a chunk of rounds
+
+        (state, data, seed, start) -> (state, stacked_metrics)
+
+    running rounds start … start + chunk_rounds − 1, round r keyed
+    `(seed, r)`, exactly as the simulator keys its per-round loop:
+    `chain_rounds` over `make_round`'s round function, so a chunk equals
+    chunk_rounds `make_round` calls bit for bit, state and every metric.
+
+    Not a CUDA graph: each round's generators are seeded on the host from
+    its round key (`named_streams`) and its draws copied to the device,
+    so a captured graph would replay one round's draws."""
+    return chain_rounds(make_round(spec, fl, fabric), chunk_rounds)
+
+
+def chain_rounds(round_fn, chunk_rounds: int):
+    """`chunk_rounds` calls of a round function
+    `(state, data, key, draws=None) -> (state, metrics)` as one chunk
+    `(state, data, seed, start) -> (state, stacked_metrics)`, round r
+    keyed `(seed, r)`. The simulator chains `Strategy.round` itself, so
+    the per-round and the chunked loop run the same round function.
+
+    Each metric comes back stacked on a leading (R,) axis: a tensor
+    metric as one (R, ...) tensor on its device (each round's value
+    copied into it when the round ends, so a later round writing in place
+    cannot reach it), any other value as a list of R. The chunk adds no
+    host synchronisation between its rounds: it fences nothing and reads
+    no metric; `metrics_to_host` brings the stack over in one copy.
+    Stages that synchronise inside a round still do (ROADMAP lists them)."""
+
+    def multi_fn(state, data, seed: int, start: int):
+        stacked = None
+        for i in range(chunk_rounds):
+            state, metrics = round_fn(state, data, (seed, int(start) + i))
+            if stacked is None:
+                stacked = _alloc_stack(metrics, chunk_rounds)
+            _put_round(stacked, i, metrics)
+        return state, stacked
+
+    return multi_fn
+
+
+def _alloc_stack(metrics: dict, n: int) -> dict:
+    """Empty (n, ...) buffers for a round's tensor metrics, lists for the
+    rest."""
+    return {k: (torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
+                            device=v.device)
+                if isinstance(v, torch.Tensor) else [])
+            for k, v in metrics.items()}
+
+
+def _put_round(stacked: dict, i: int, metrics: dict):
+    if metrics.keys() != stacked.keys():
+        raise ValueError(f"round {i} of the chunk emitted metrics "
+                         f"{sorted(metrics)}, the first round "
+                         f"{sorted(stacked)}")
+    for k, v in metrics.items():
+        if isinstance(v, torch.Tensor):
+            stacked[k][i].copy_(v)
+        else:
+            stacked[k].append(v)
+
+
+def metrics_to_host(tree: dict) -> dict:
+    """A metrics dict with every device tensor moved to the CPU in one
+    copy (their bytes packed into one buffer on the device); CPU tensors
+    and other values pass through."""
+    moved = [k for k, v in tree.items()
+             if isinstance(v, torch.Tensor) and v.device.type != "cpu"]
+    if not moved:
+        return dict(tree)
+    flat = [tree[k].contiguous().reshape(-1).view(torch.uint8)
+            for k in moved]
+    host = torch.cat(flat).cpu()
+    out, off = dict(tree), 0
+    for k, f in zip(moved, flat):
+        v = tree[k]
+        out[k] = host[off:off + f.numel()].clone().view(v.dtype).reshape(
+            v.shape)
+        off += f.numel()
+    return out
+
+
+def unstack_metrics(stacked: dict, n: int) -> list:
+    """The n per-round metric dicts of a stacked chunk (`make_multi_round`)."""
+    return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
 
 
 def gather_neighbors(tree, nbr_idx, m: int):

@@ -1,6 +1,7 @@
 """Population FL simulator — round loop + personalized evaluation,
-reference `repro.fl.simulator` (the per-round loop; the chunked scan
-path is ROADMAP queue 1 item 6).
+reference `repro.fl.simulator`: a per-round loop, or chunks of rounds
+(`run_experiment(chunk_rounds=)`, `engine.chain_rounds`) whose
+stacked metrics are unstacked into the same per-round bookkeeping.
 
 Personalized test accuracy = mean over clients of client i's model on
 client i's OWN test split (the paper's primary metric); FedBABU's
@@ -33,7 +34,7 @@ cumulative selection graph and a summary.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -43,7 +44,13 @@ from repro_torch.core.client_state import stack_trees
 from repro_torch.core.partial_freeze import make_phase_steps
 from repro_torch.data.pipeline import as_index_tensor
 from repro_torch.device import resolve_device
-from repro_torch.fl.engine import named_streams, run_round
+from repro_torch.fl.engine import (
+    chain_rounds,
+    make_round,
+    metrics_to_host,
+    named_streams,
+    unstack_metrics,
+)
 from repro_torch.fl.hetero import local_wall_times, sample_device_vectors
 from repro_torch.fl.strategies import local_train_steps, make_strategy
 from repro_torch.models import model as model_mod
@@ -156,6 +163,13 @@ class History:
                       for name, vals in self.extra.items()},
         }
 
+    def rounds_to_target(self, target: float):
+        """First eval round reaching `target` accuracy (None if never)."""
+        for r, a in zip(self.rounds, self.accuracy):
+            if a >= target:
+                return r
+        return None
+
     def bytes_to_target(self, target: float):
         """Cumulative comm bytes when `target` accuracy is first reached
         (None if never)."""
@@ -203,17 +217,12 @@ def _profile_stages(strat, fl, train_data, seed: int, *,
     streams and network draws are untouched (its peer store included:
     the throwaway state has its own)."""
     times = StageTimes()
-    stages = instrument_stages(strat.stages, times)
+    spec = replace(
+        strat.spec, stages=instrument_stages(strat.spec.stages, times))
+    round_fn = make_round(spec, fl, strat.fabric)
     state = strat.init(seed)
     for r in range(rounds):
-        aff = (strat.affinity(state) if strat.fabric is not None
-               and strat.affinity is not None else None)
-        state, _ = run_round(stages, state, train_data,
-                             (seed, PROFILE_STREAM_KEY, r),
-                             m=fl.num_clients,
-                             ratio=fl.client_sample_ratio,
-                             key_streams=strat.key_streams,
-                             fabric=strat.fabric, affinity=aff)
+        state, _ = round_fn(state, train_data, (seed, PROFILE_STREAM_KEY, r))
     return times.summary()
 
 
@@ -223,13 +232,15 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
                    verbose: bool = True, device="cuda",
                    on_round=None, trace: str | None = None,
                    trace_stages: bool = False,
-                   trace_edges: bool = False, eval_mask=None) -> History:
+                   trace_edges: bool = False, chunk_rounds: int = 1,
+                   eval_mask=None) -> History:
     """data: dict(train_x, train_y, test_x, test_y), leading-M stacked
     (tensors or numpy arrays; moved to `device`).
 
     on_round: optional `(round_index, metrics) -> None`, called after
     each round with the round's metrics dict (arrays included, e.g.
-    `select_mask`), outside the round's wall clock.
+    `select_mask`), outside the round's wall clock; under chunks, once
+    per unstacked round, with the metrics on the host.
 
     The network comes from `fl.comms` (a `CommsConfig`: topology,
     ring_hops, hier_cluster, ..., link_model, the events p_link_drop,
@@ -244,6 +255,18 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
     summary. trace_stages adds a 2-round stage profile on throwaway state
     (`_profile_stages`); trace_edges embeds each round's selected edges.
     With trace=None the run is unchanged.
+
+    chunk_rounds > 1 runs the rounds in chunks (`engine.chain_rounds` of
+    the strategy's round function, the one the per-round loop calls; one
+    per distinct chunk size): a chunk's rounds run with no fence between
+    them, its stacked metrics come to the host in one copy and
+    are unstacked into the per-round bookkeeping (History, trace records,
+    on_round). Chunks end at every eval boundary, so evaluation sees the
+    state right after its round. Round r is keyed (seed, r) either way,
+    so every History field but the walls, and every trace record but its
+    wall and compile flag, equals the per-round run's. `History.compile_s`
+    then covers the first chunk, whose trace records carry compile=True.
+    chunk_rounds=1 is the per-round loop.
 
     eval_mask: optional (M,) bool restricting the reported personalized
     accuracy to these clients' mean (NaN when it selects none); None
@@ -285,15 +308,13 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
     clock = RoundClock()
     cum_bytes, cum_net_s, cum_energy, cum_device_s = 0, 0.0, 0.0, 0.0
     t_start = time.time()
-    for r in range(num_rounds):
-        with clock.round():
-            state, metrics = strat.round(state, train_data, (seed, r))
-            # fence, so the clock sees the work, not its queueing
-            fence(device)
-        if r == 0:
-            hist.compile_s = clock.compile_s
-        # the accounting reads the round's edges on the host: after the
-        # timed wall, never inside it
+
+    def consume_round(r, metrics, *, compile_round: bool):
+        """The host's bookkeeping of round r, after its timed wall: fabric
+        accounting, History, eval, trace record. The same for the
+        per-round and the chunked (unstacked) loop."""
+        nonlocal cum_bytes, cum_net_s, cum_energy, cum_device_s
+        # the accounting reads the round's edges on the host
         if strat.fabric is not None:
             stats = strat.fabric.account_round(strat.comm_pattern, metrics,
                                                payload, name=strat.name)
@@ -370,7 +391,7 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
             mask = metrics.get("select_mask", metrics.get("comm_edges"))
             edges = graph.observe(mask) if mask is not None else None
             tracer.write(round_record(
-                rnd=r, wall_s=clock.last_s, compile_round=(r == 0),
+                rnd=r, wall_s=clock.last_s, compile_round=compile_round,
                 active=int(metrics["active"].sum()),
                 stale_mean=mean_lag, stale_max=max_lag,
                 comm={"bytes": round_bytes, "net_time_s": round_net_s,
@@ -381,6 +402,39 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
                 edges=sorted(edges) if (trace_edges and edges is not None)
                 else None,
                 eval_point=eval_point))
+
+    if chunk_rounds > 1:
+        # one chunk function per distinct size (sizes differ only at eval
+        # boundaries and the tail)
+        multi_fns: dict = {}
+        r0 = chunk_i = 0
+        while r0 < num_rounds:
+            # chunks END at eval boundaries, so evaluation sees the state
+            # right after the eval round
+            boundary = min((r0 // eval_every + 1) * eval_every, num_rounds)
+            size = min(chunk_rounds, boundary - r0)
+            fn = multi_fns.get(size)
+            if fn is None:
+                fn = multi_fns[size] = chain_rounds(strat.round, size)
+            with clock.chunk(size):
+                state, stacked = fn(state, train_data, seed, r0)
+                fence(device)
+            if chunk_i == 0:
+                hist.compile_s = clock.compile_s
+            for i, metrics in enumerate(unstack_metrics(
+                    metrics_to_host(stacked), size)):
+                consume_round(r0 + i, metrics, compile_round=chunk_i == 0)
+            r0 += size
+            chunk_i += 1
+    else:
+        for r in range(num_rounds):
+            with clock.round():
+                state, metrics = strat.round(state, train_data, (seed, r))
+                # fence, so the clock sees the work, not its queueing
+                fence(device)
+            if r == 0:
+                hist.compile_s = clock.compile_s
+            consume_round(r, metrics, compile_round=r == 0)
 
     if tracer is not None:
         if graph.rounds > 0:

@@ -1,5 +1,9 @@
-"""The paper's baselines and PFedDST as engine stages — reference
+"""The paper's baselines and PFedDST as engine specs — reference
 `repro.fl.strategies`.
+
+`make_spec(name, cfg, fl)` returns the declarative `engine.StrategySpec`;
+`make_strategy` adds the comms fabric and the round function
+(`engine.make_round`):
 
     init(seed)                      -> state (leading-M stacked)
     round(state, data, key, draws)  -> (state, metrics)
@@ -41,13 +45,13 @@ reference does, that stale peers serve live parameters, and that a
 finite `deadline_s` is ignored.
 
 The open world (`fl.threat`, `fl.churn`; `repro_torch.openworld`) wraps
-any strategy: `make_strategy` passes its stages through
+any strategy: `make_spec` passes its spec through
 `openworld.make_open_spec` (churn, the threat cast, the byzantine
 corruption, isolation telemetry; the state becomes `{"inner", "alive"}`),
 and a `ThreatConfig.defense` is wired into the aggregation when the
 stages are built (`reducer=` of the star average, `mixer=` of the gossip
 mix, the PFedDST aggregate stage). Inert or absent configs leave the
-stages the very same objects.
+spec the very same object.
 
 Every strategy carries the comms fabric of `fl.comms` (`Strategy.fabric`,
 on the strategy's device; None with `comms=None`): the engine composes
@@ -79,11 +83,12 @@ from repro_torch.fl.hetero import (
     sample_device_vectors,
 )
 from repro_torch.fl.engine import (
+    StrategySpec,
     client_slice,
     device_generator,
     gather_rows,
+    make_round,
     named_streams,
-    run_round,
     scatter_rows,
     stage_bump_round,
     stage_mix,
@@ -133,6 +138,11 @@ def local_train_steps(name: str, fl, steps_per_epoch: int) -> int:
 
 @dataclass
 class Strategy:
+    """The external surface around a StrategySpec: its fields, the
+    fabric, and the round function `engine.make_round` builds. The
+    simulator runs `round` on both its loops (per round and chunked), so
+    a caller may replace it; the copied spec fields do not define the
+    round."""
     name: str
     init: Callable             # (seed) -> state
     round: Callable            # (state, data, key, draws=None) -> (state, metrics)
@@ -146,6 +156,7 @@ class Strategy:
     key_streams: tuple = ()           # the round's stream layout
     affinity: Callable = None         # (state) -> (M, M) dynamic steering
     versioned: bool = False           # carries a fl.hetero PeerStore
+    spec: StrategySpec = None         # the declarative round definition
 
 
 # ---------------------------------------------------------------------------
@@ -222,10 +233,10 @@ def _central_spec(cfg, fl, steps_per_epoch: int, kind: str, device):
               stage_star_average(cfg, share=share,
                                  reducer=star_reducer(fl.threat)),
               stage_bump_round())
-    return init, stages, CENTRAL_STREAMS, dict(
-        comm_pattern="star", payload_kind=share,
-        needs_head_finetune=(kind == "fedbabu"),
-        params_for_eval=_dict_params)
+    return StrategySpec(
+        name=kind, init=init, stages=stages, params_for_eval=_dict_params,
+        key_streams=CENTRAL_STREAMS, comm_pattern="star",
+        payload_kind=share, needs_head_finetune=(kind == "fedbabu"))
 
 
 # ---------------------------------------------------------------------------
@@ -315,8 +326,10 @@ def _gossip_spec(cfg, fl, steps_per_epoch: int, kind: str, device):
               stage_mix(cfg, share=share, mixer=robust_mixer(fl.threat)))
     if kind == "dispfl":
         stages = (stage_apply_masks(),) + stages + (stage_evolve_masks(fl),)
-    return init, stages + (stage_bump_round(),), GOSSIP_STREAMS, dict(
-        payload_kind=share, params_for_eval=_dict_params,
+    return StrategySpec(
+        name=kind, init=init, stages=stages + (stage_bump_round(),),
+        params_for_eval=_dict_params, key_streams=GOSSIP_STREAMS,
+        payload_kind=share,
         payload_fraction=(1.0 - fl.dispfl_sparsity if kind == "dispfl"
                           else 1.0))
 
@@ -348,22 +361,27 @@ def _pfeddst_spec(cfg, fl, steps_per_epoch: int, name: str, device):
 
     # a dynamic topology steers toward the peers the loss array l marked
     # informative last round (Algorithm 1's context)
-    return init, stages, PFEDDST_STREAMS, dict(
+    return StrategySpec(
+        name=name, init=init, stages=stages,
+        params_for_eval=_pfeddst_params, key_streams=PFEDDST_STREAMS,
         affinity=lambda state: state.loss_matrix,
-        versioned=hetero is not None, params_for_eval=_pfeddst_params)
+        versioned=hetero is not None)
 
 
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
 
-def make_strategy(name: str, cfg, fl, steps_per_epoch: int = 2, *,
-                  device="cuda") -> Strategy:
-    """The strategy `name` on `device` (default CUDA; raises without it),
-    with the comms fabric of `fl.comms` on the same device (its links
-    scaled by a `device_profile`'s channel rates), wrapped by the open
-    world of `fl.threat` / `fl.churn` (`openworld.make_open_spec`: the
-    same stage objects when both are absent or inert)."""
+def make_spec(name: str, cfg, fl, steps_per_epoch: int = 2, *,
+              device="cuda") -> StrategySpec:
+    """The declarative spec of a registered strategy (the engine's input),
+    its init building the state on `device` (default CUDA; raises without
+    it).
+
+    With fl.threat / fl.churn configured, the spec is wrapped by
+    `openworld.make_open_spec` (churn, byzantine and score-gaming
+    adversaries, isolation telemetry); inert or absent configs return the
+    unwrapped spec object itself."""
     if name not in STRATEGIES:
         raise KeyError(f"unknown strategy {name!r}; available: {STRATEGIES}")
     for field, item in NOT_PORTED_FIELDS.items():
@@ -372,14 +390,20 @@ def make_strategy(name: str, cfg, fl, steps_per_epoch: int = 2, *,
                 f"FLConfig.{field} is not ported yet (ROADMAP queue 1 item "
                 f"{item})")
     device = resolve_device(device)
-    spec = (_central_spec if name in CENTRAL else
-            _gossip_spec if name in GOSSIP else _pfeddst_spec)
-    init, stages, streams, meta = spec(cfg, fl, steps_per_epoch, name,
-                                       device)
-    init, stages, meta = make_open_spec(init, stages, meta, fl,
-                                        device=device)
-    affinity = meta.pop("affinity", None)
-    params_for_eval = meta.pop("params_for_eval")
+    build = (_central_spec if name in CENTRAL else
+             _gossip_spec if name in GOSSIP else _pfeddst_spec)
+    return make_open_spec(build(cfg, fl, steps_per_epoch, name, device), fl,
+                          device=device)
+
+
+def make_strategy(name: str, cfg, fl, steps_per_epoch: int = 2, *,
+                  device="cuda") -> Strategy:
+    """The strategy `name` on `device` (default CUDA; raises without it):
+    `make_spec`, the comms fabric of `fl.comms` on the same device (its
+    links scaled by a `device_profile`'s channel rates) and
+    `engine.make_round` over both."""
+    device = resolve_device(device)
+    spec = make_spec(name, cfg, fl, steps_per_epoch, device=device)
     # deterministic in (profile, M): the hetero runtime and the simulator
     # derive the same vectors from the same inputs
     rates = (None if fl.device_profile is None else
@@ -387,14 +411,13 @@ def make_strategy(name: str, cfg, fl, steps_per_epoch: int = 2, *,
                                    fl.num_clients).channel_rate)
     fabric = make_fabric(fl.comms, fl.num_clients, cost_scale=fl.comm_cost,
                          channel_rate=rates, device=device)
-    pattern = meta.get("comm_pattern", "p2p")
-    if hasattr(fabric, "round_slots") and pattern != "p2p":
+    if hasattr(fabric, "round_slots") and spec.comm_pattern != "p2p":
         raise ValueError(
             f"CommsConfig(sparse=True) models peer-to-peer links only; "
-            f"strategy {name!r} uses comm_pattern={pattern!r}. Centralized "
-            "baselines need the dense fabric (sparse=False) for star "
-            "accounting.")
-    if not meta.get("versioned"):
+            f"strategy {name!r} uses comm_pattern={spec.comm_pattern!r}. "
+            "Centralized baselines need the dense fabric (sparse=False) "
+            "for star accounting.")
+    if not spec.versioned:
         # the reference's warnings: only a versioned strategy honours a
         # staleness lag, and only pfeddst_async runs the deadline gate
         if (fl.comms is not None and fl.comms.stale_mode == "serve"
@@ -414,18 +437,14 @@ def make_strategy(name: str, cfg, fl, steps_per_epoch: int = 2, *,
                 "runs the semi-async deadline gate; this strategy runs "
                 "fully synchronous rounds.",
                 stacklevel=2)
-
-    def round_fn(state, data, key, draws=None):
-        return run_round(stages, state, data, key, m=fl.num_clients,
-                         ratio=fl.client_sample_ratio, key_streams=streams,
-                         draws=draws, fabric=fabric,
-                         affinity=None if affinity is None else affinity(
-                             state))
-
-    return Strategy(name=name, init=init, round=round_fn,
-                    params_for_eval=params_for_eval, fabric=fabric,
-                    stages=stages, key_streams=streams, affinity=affinity,
-                    **meta)
+    return Strategy(
+        name=spec.name, init=spec.init, round=make_round(spec, fl, fabric),
+        params_for_eval=spec.params_for_eval,
+        needs_head_finetune=spec.needs_head_finetune,
+        comm_pattern=spec.comm_pattern, payload_kind=spec.payload_kind,
+        payload_fraction=spec.payload_fraction, fabric=fabric,
+        stages=spec.stages, key_streams=spec.key_streams,
+        affinity=spec.affinity, versioned=spec.versioned, spec=spec)
 
 
 def _dict_params(state):

@@ -12,8 +12,8 @@ queued and the fence is a no-op):
 * `instrument_stages` — wraps engine stages with fences, timing and a
   profiler span each, so a round attributes host wall to its stages.
 * `RoundClock` — the whole-round variant `run_experiment` threads
-  through: round 0's wall lands in `compile_s`, later rounds in
-  `steady_s`.
+  through: round 0's wall (or, chunked, the first chunk's) lands in
+  `compile_s`, later rounds in `steady_s`.
 * `annotate` — a `torch.profiler.record_function` span; the engine puts
   one around every stage (`stage:<name>`), so a torch.profiler trace
   groups a round's kernels by stage.
@@ -48,6 +48,9 @@ class StageTimes:
     first[label]    wall of the label's first observed call (kernel
                     builds, cuBLAS and allocator warm-up land here)
     steady[label]   list of subsequent call walls
+
+    (The reference's `add/timed(rounds=)`, which spreads a chunked call
+    over its rounds, comes with the first chunked caller of StageTimes.)
     """
     first: dict = field(default_factory=dict)
     steady: dict = field(default_factory=dict)
@@ -119,27 +122,37 @@ def instrument_stages(stages, times: StageTimes):
 
 @dataclass
 class RoundClock:
-    """Whole-round wall clock with the round-0 compile split: the first
-    `round()` context's wall lands in `compile_s`, every later one
-    accumulates into `steady_s`; `elapsed()` is the steady wall only;
-    `last_s` is the latest round's wall. The caller fences inside the
-    context. (The reference's `chunk(n)` belongs to its chunked scan
-    path, not ported: ROADMAP queue 1 item 6.)"""
+    """Whole-round wall clock with the first-call split: the first
+    context's wall lands in `compile_s`, every later one accumulates into
+    `steady_s`; `elapsed()` is the steady wall only. The caller fences
+    inside the context.
+
+    `chunk(n)` times `n` rounds run as one chunk (`engine.make_multi_round`):
+    the first chunk's whole wall is `compile_s` (the first-call costs and
+    n executed rounds), later chunks add to `steady_s`. `last_s` is the
+    latest context's per-round wall (chunk wall / n), what the trace
+    records for each of its rounds. `round()` is `chunk(1)`."""
     compile_s: float = 0.0
     steady_s: float = 0.0
     rounds: int = 0
     last_s: float = 0.0
 
     @contextmanager
-    def round(self):
+    def chunk(self, n: int):
         t0 = time.perf_counter()
         yield
-        self.last_s = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        self.last_s = wall / n
         if self.rounds == 0:
-            self.compile_s = self.last_s
+            self.compile_s = wall
         else:
-            self.steady_s += self.last_s
-        self.rounds += 1
+            self.steady_s += wall
+        self.rounds += n
+
+    @contextmanager
+    def round(self):
+        with self.chunk(1):
+            yield
 
     def elapsed(self) -> float:
         return self.steady_s

@@ -2,11 +2,11 @@
 score-integrity adversaries composable onto any strategy; the port of
 `repro.openworld`.
 
-Entry point: `make_open_spec(init, stages, meta, fl)` (compose), applied
-by `fl.strategies.make_strategy`. Submodules: lifecycle (join/leave churn
-+ newcomer bootstrap), attacks (byzantine update corruption + Eq. 7/9
-score gaming), defense (robust reducers and mixers for the engine's
-hooks), metrics (attacker isolation). Configured through
+Entry point: `make_open_spec(spec, fl)` (compose), applied to every
+`StrategySpec` by `fl.strategies.make_spec`. Submodules: lifecycle
+(join/leave churn + newcomer bootstrap), attacks (byzantine update
+corruption + Eq. 7/9 score gaming), defense (robust reducers and mixers
+for the engine's hooks), metrics (attacker isolation). Configured through
 `configs.base.ThreatConfig` / `ChurnConfig` on FLConfig.
 """
 from repro_torch.openworld.attacks import (

@@ -1,10 +1,9 @@
-"""make_open_spec — wrap a strategy's stages with churn and adversaries,
+"""make_open_spec — wrap any StrategySpec with churn and adversaries,
 reference `repro.openworld.compose`.
 
-The port has no StrategySpec: a strategy is the `(init, stages, streams,
-meta)` its spec builder returns (`fl.strategies`), with `meta` carrying
-`params_for_eval` and, where there is one, `affinity`. The open world
-composes onto it without the strategy knowing: the wrapped state is
+The open world composes onto a strategy's spec (`fl.engine.StrategySpec`,
+built by `fl.strategies.make_spec`) without the strategy knowing: the
+wrapped state is
 `{"inner": <strategy state>, "alive": (M,) bool}`, every stage is lifted
 to act on `state["inner"]` (keeping its `stage_name`, so stage profiles
 and the byzantine insertion point see the original names), and the
@@ -18,12 +17,17 @@ open-world stages slot around them:
     ow_metrics      attacker-isolation telemetry from the round's plan
 
 THE IDENTITY GUARANTEE: with neither churn nor an adversary cast (configs
-absent, or present but inert) `make_open_spec` returns the very objects
-it was given, so every closed run stays bit for bit what it was.
+absent, or present but inert) `make_open_spec` returns the very spec
+object it was given (same init, same stages), so every closed run stays
+bit for bit what it was. The wrapper adds no stream to the spec's
+layout: churn and the gaussian attack key their own generators by the
+round key and a salt (`fl.engine.salted_streams`).
 Defenses do not wrap: they are wired when the stages are built, through
 the engine's reducer/mixer hooks and the PFedDST aggregate stage.
 """
 from __future__ import annotations
+
+from dataclasses import replace
 
 import torch
 
@@ -70,25 +74,25 @@ def threat_state(threat, m: int, device="cpu"):
         cost_gain=threat.cost_gain)
 
 
-def make_open_spec(init, stages, meta, fl, *, device="cpu"):
-    """Wrap a strategy per `fl.threat` / `fl.churn` → (init, stages,
-    meta). Returns the given objects themselves when there is nothing to
-    do; else a wrapped init (`{"inner", "alive"}` on `device`), the
-    lifted stages and a new meta whose `params_for_eval` and `affinity`
-    unwrap the state."""
+def make_open_spec(spec, fl, *, device="cpu"):
+    """Wrap `spec` per `fl.threat` / `fl.churn` → a StrategySpec. Returns
+    `spec` itself, not a copy, when there is nothing to do; else a spec
+    with a wrapped init (`{"inner", "alive"}` on `device`), the lifted
+    stages, and a `params_for_eval` and `affinity` that unwrap the
+    state."""
     churn = fl.churn if fl.churn is not None and not fl.churn.inert \
         else None
     tstate = threat_state(fl.threat, fl.num_clients, device)
     if churn is None and tstate is None:
-        return init, stages, meta
+        return spec
 
+    stages = spec.stages
     lifted = [_lift(s) for s in stages]
     if tstate is not None and tstate.attack != "none":
         train_at = [i for i, s in enumerate(stages)
                     if stage_name(s) in TRAIN_STAGE_NAMES]
         if not train_at:
-            raise ValueError(f"the stages {[stage_name(s) for s in stages]}"
-                             f" have no train-like stage "
+            raise ValueError(f"spec {spec.name!r} has no train-like stage "
                              f"({TRAIN_STAGE_NAMES}) to corrupt after")
         lifted.insert(train_at[-1] + 1, _lift(stage_byzantine(
             tstate, population_params, with_population_params)))
@@ -99,16 +103,17 @@ def make_open_spec(init, stages, meta, fl, *, device="cpu"):
     if churn is not None:
         lifted.insert(0, stage_churn(churn))
 
+    inner_init = spec.init
+    inner_eval = spec.params_for_eval
+    inner_affinity = spec.affinity
     alive0 = init_alive(fl.num_clients, churn)
 
     def open_init(seed):
-        return {"inner": init(seed),
+        return {"inner": inner_init(seed),
                 "alive": torch.from_numpy(alive0).to(device)}
 
-    inner_eval = meta["params_for_eval"]
-    meta = {**meta, "params_for_eval": lambda state: inner_eval(
-        state["inner"])}
-    inner_affinity = meta.get("affinity")
+    kwargs = dict(init=open_init, stages=tuple(lifted),
+                  params_for_eval=lambda state: inner_eval(state["inner"]))
     if inner_affinity is not None:
-        meta["affinity"] = lambda state: inner_affinity(state["inner"])
-    return open_init, tuple(lifted), meta
+        kwargs["affinity"] = lambda state: inner_affinity(state["inner"])
+    return replace(spec, **kwargs)

@@ -971,3 +971,92 @@ def test_checkpoint_restore_keeps_host_scalars_on_the_host(cuda, tmp_path):
         if a.dtype == torch.bfloat16:
             a, b = a.view(torch.int16), b.view(torch.int16)
         assert torch.equal(a, b)
+
+
+def _deterministic():
+    """cuDNN deterministic and no benchmark (as chip_smoke's phase 7 (a)),
+    restored on exit."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        flags = (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = flags
+
+    return ctx()
+
+
+@pytest.mark.cuda
+def test_chunked_rounds_on_card_equal_per_round_rounds(cuda):
+    """pfeddst with the score kernel at a small size: a 4-round
+    make_multi_round chunk equals 4 make_round calls bitwise (state and
+    every metric), select_topk launched once a round in each; and
+    run_experiment(chunk_rounds=2) equals chunk_rounds=1 in every History
+    field but the walls (its metrics reach the host in one packed copy)."""
+    import dataclasses
+
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.data.synthetic import client_datasets_cifar
+    from repro_torch.fl import engine, simulator
+    from repro_torch.fl.strategies import make_strategy
+    from repro_torch.utils.pytree import tree_paths
+
+    cfg = dataclasses.replace(get_config("resnet18-cifar").reduced(),
+                              dtype="float32", image_size=8)
+    data = client_datasets_cifar(1, 6, samples_per_class=10, image_size=8)
+    train = {"images": data["train_x"].to(cuda),
+             "labels": data["train_y"].to(cuda)}
+    fl = FLConfig(num_clients=6, peers_per_round=2, batch_size=8,
+                  client_sample_ratio=0.5, epochs_extractor=1,
+                  epochs_header=1, probe_size=4, use_score_kernel=True)
+    strat = make_strategy("pfeddst", cfg, fl, 1, device=cuda)
+    with _deterministic():
+        ops.reset_launch_counts()
+        state, mets = strat.init(1), []
+        for r in range(4):
+            state, met = strat.round(state, train, (3, r))
+            mets.append(met)
+        assert ops.launch_counts()["select_topk"] == 4
+        ops.reset_launch_counts()
+        fn = engine.make_multi_round(strat.spec, fl, strat.fabric,
+                                     chunk_rounds=4)
+        chunk_state, stacked = fn(strat.init(1), train, 3, 0)
+        assert ops.launch_counts()["select_topk"] == 4
+        for (p, a), (_, b) in zip(tree_paths(chunk_state),
+                                  tree_paths(state)):
+            assert torch.equal(a, b), p
+        host = engine.metrics_to_host(stacked)
+        for i, met in enumerate(engine.unstack_metrics(host, 4)):
+            assert met.keys() == mets[i].keys()
+            for k, v in met.items():
+                assert v.device.type == "cpu"
+                assert torch.equal(v, mets[i][k].cpu()), (i, k)
+        hists = [simulator.run_experiment(
+            "pfeddst", cfg, fl, data, num_rounds=4, eval_every=2,
+            steps_per_epoch=1, verbose=False, device=cuda,
+            chunk_rounds=chunk).to_dict() for chunk in (2, 1)]
+    for key in set(hists[0]) - {"wall_s", "compile_s"}:
+        assert hists[0][key] == hists[1][key], key
+
+
+@pytest.mark.cuda
+def test_driver_cli_runs_on_card(cuda, capsys):
+    """The CLI's --device cuda path: 2 rounds of the reduced default
+    (pfeddst and pfeddst_random, one chunk of 2 each)."""
+    import math
+
+    from repro_torch.examples import fl_cifar_sim
+
+    hists = fl_cifar_sim.main(["--rounds", "2", "--device", "cuda"])
+    assert set(hists) == {"pfeddst", "pfeddst_random"}
+    for hist in hists.values():
+        assert hist.rounds == [2]
+        assert all(math.isfinite(x) for x in hist.accuracy + hist.train_loss)
+    assert "final personalized accuracy" in capsys.readouterr().out

@@ -469,21 +469,22 @@ FL_KW = dict(num_clients=6, peers_per_round=2, client_sample_ratio=0.5,
 
 @pytest.mark.parametrize("name", ["pfeddst", "dfedavgm", "fedavg"])
 def test_make_open_spec_returns_the_same_objects_when_inert(cfgs, name):
-    """Absent configs, and present but inert ones: the spec builder's
-    init, stages and meta come back as the very objects."""
+    """Absent configs, and present but inert ones: the StrategySpec a
+    spec function built comes back as the very object, its init and stages
+    untouched."""
     cfg = cfgs[1]
-    builder = (strategies._pfeddst_spec if name == "pfeddst" else
-               strategies._gossip_spec if name == "dfedavgm" else
-               strategies._central_spec)
+    build = (strategies._pfeddst_spec if name == "pfeddst" else
+             strategies._gossip_spec if name == "dfedavgm" else
+             strategies._central_spec)
     for fl in (FLConfig(**FL_KW),
                FLConfig(threat=ThreatConfig(), churn=ChurnConfig(),
                         **FL_KW),
                FLConfig(threat=ThreatConfig(adversary_fraction=0.5),
                         **FL_KW)):
-        init, stages, _, meta = builder(cfg, fl, 1, name,
-                                        torch.device("cpu"))
-        out = ow.make_open_spec(init, stages, meta, fl)
-        assert out[0] is init and out[1] is stages and out[2] is meta
+        spec = build(cfg, fl, 1, name, torch.device("cpu"))
+        init, stages = spec.init, spec.stages
+        out = ow.make_open_spec(spec, fl)
+        assert out is spec and out.init is init and out.stages is stages
     strat = strategies.make_strategy(
         name, cfg, FLConfig(threat=ThreatConfig(), churn=ChurnConfig(),
                             **FL_KW), 1, device="cpu")
