@@ -66,7 +66,13 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             4096, 10, 256), k/v (1, 4096, 1, 256) bf16, causal, window 2048
             (the hd-256 instance), within one bf16 ulp, SDPA with the window
             as a mask beside it; an f32 ragged case at hd 96, zero-padded to
-            the hd-128 instance, within 1e-5·max(1, max|out|)).
+            the hd-128 instance, within 1e-5·max(1, max|out|)); then the
+            new serving paths' prefill shapes in bf16, each within one ulp
+            of the plain version, SDPA beside it: recurrentgemma-2b (4,
+            4096, 4096, 10/1, hd 256, causal, window 2048), qwen2.5-14b
+            (4, 4096, 4096, 40/8, hd 128, causal), whisper-base's encoder
+            (4, 1500, 1500, 8/8, hd 64, not causal) and its cross-attention
+            (4, 416 queries, 1500 keys, 8/8, hd 64, not causal).
             wkv_chunked, its two kernels (state pass, output pass) per call
             (rwkv6-7b prefill: B=4, S=4096, H=64, hd=64, r/k/v bf16,
             w = exp(−exp(U[−6, −1])) f32: one bf16 ulp; an f32 case with
@@ -100,13 +106,18 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             pfeddst runs 3 rounds twice more with cuDNN deterministic,
             once with `comms=None` and once under the default fabric: the
             two must select the same peers in every round.
-            Then `serve_requests` (launch/serve.py) for qwen2-1.5b and
-            rwkv6-7b at full width and depth in bf16 with random weights:
-            batch 4, prompt 4096, 32 greedy tokens, 3 requests each, the
-            launch counters set to 0 just before each: flash_attention must
-            run once per layer per request (28 × 3), all on the wgmma
-            route, wkv_chunked likewise (32 × 3); logits finite, tokens
-            inside the vocabulary. After the rwkv6-7b requests, one more
+            Then `serve_requests` (launch/serve.py) at full width and
+            depth in bf16 with random weights, batch 4, 32 greedy tokens
+            (SERVE_RUNS): qwen2-1.5b, rwkv6-7b and recurrentgemma-2b
+            (prompt 4096, 3 requests), qwen2.5-3b, qwen2.5-14b and
+            starcoder2-7b (prompt 4096, 2 requests), whisper-base (1500
+            zero frames, the driver's stub; prompt 416, 3 requests), the
+            launch counters set to 0 just before each: the prefill kernel
+            must run once per attention layer per request, flash_attention
+            (qwen2 28, recurrentgemma 8, qwen2.5-3b 36, qwen2.5-14b 48,
+            starcoder2 32, whisper 6 + 6 + 6), all on the wgmma route, or
+            wkv_chunked once per layer (32), the other one never; logits
+            finite, tokens inside the vocabulary; peak memory printed. After the rwkv6-7b requests, one more
             steady prefill of the same model and prompts runs under
             torch.profiler: wkv_chunked's share of device time, the device
             idle share and the top kernels (chiprun_out/
@@ -118,10 +129,12 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             on the card, dense mix on the CPU) edges exact, params rtol
             1e-3; dispfl edges exact, masks exact apart from counted
             entries within rtol 2e-3 of their leaf's threshold, the other
-            params rtol 1e-3. Serving at the reduced qwen2-1.5b and
-            rwkv6-7b configs in f32 (batch 2, prompt 80, 8 tokens), the
-            same weights on both: greedy tokens equal, prefill logits and
-            the KV cache / rwkv state within 1e-4 of their scale.
+            params rtol 1e-3. Serving at the reduced qwen2-1.5b, rwkv6-7b,
+            recurrentgemma-2b (its window of 16 wrapped by the prompt) and
+            whisper-base (random frames) configs in f32 (batch 2, prompt
+            80, 8 tokens), the same weights on both: greedy tokens equal,
+            prefill logits and the KV cache / rwkv state / LRU states and
+            rings / cross k/v within 1e-4 of their scale.
 5. profile  one more pfeddst round under torch.profiler; the top CUDA
             kernels by time go to chiprun_out/chip_smoke_profile.txt (the
             engine's `stage:<name>` ranges are left out of the kernel
@@ -244,14 +257,24 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             round and as one chunk of 2 in turns, 3 runs of each; the
             medians of the run's wall and of its rounds' wall, per round,
             and each back-to-back pair's chunked / per-round ratio.
+10. hybrid  (a) `rglru.rg_lru_scan` at recurrentgemma-2b's full width
+            (B=4, S=4096, W=2560, f32) against the recurrence run step by
+            step in f64 from the scan's own (a, b): within 1e-5 of the
+            scale; its time. (b) one steady recurrentgemma-2b prefill
+            (bf16, B=4, S=4096) under torch.profiler: device time, idle
+            share, flash_attention's share (8 launches), the f32 GEMMs'
+            share (the RG-LRU gates) and the 16-bit GEMMs'; the gate GEMMs
+            once more by CUDA events (chiprun_out/
+            chip_smoke_hybrid_prefill_profile.txt).
 
 Output: each phase's wall, the card's name and power limit (nvidia-smi),
 one `kernels` JSON line (`launches` from phase 3's run of the kernel's
 path, `launches_fabric` from each phase-6 run, select_topk's
 `launches_async` from phase 7 (b); `launches_openworld` of select_topk,
 gossip_mix and mask_evolve from each phase-8 run; `launches_driver` of
-the same three from each phase-9 run; flash's `hd256` row
-from phase 2; mask_evolve's count calls,
+the same three from each phase-9 run; flash's `hd256` row and its
+`serving_shapes` rows from phase 2, and `launches_serve`, each serving
+run's launches, from phase 3; mask_evolve's count calls,
 each of 3–5 kernel launches, and its row also gives the leaves those
 calls covered and the whole stage's time and device time; select_topk's
 times are those of the M=16 case with the cost matrix and candidate mask
@@ -1035,8 +1058,30 @@ def run_path(name, cfg, fl, data, rounds, dev, run_experiment, ops,
                 **{key: h["extra"][key] for key in loss_keys[:1]})
 
 
-SERVE_ARCHS = {"qwen2-1.5b": "flash_attention", "rwkv6-7b": "wkv_chunked"}
+# arch → (the kernel its prefill launches, requests, prompt length)
+SERVE_RUNS = {"qwen2-1.5b": ("flash_attention", 3, 4096),
+              "rwkv6-7b": ("wkv_chunked", 3, 4096),
+              "recurrentgemma-2b": ("flash_attention", 3, 4096),
+              "qwen2.5-3b": ("flash_attention", 2, 4096),
+              "qwen2.5-14b": ("flash_attention", 2, 4096),
+              "starcoder2-7b": ("flash_attention", 2, 4096),
+              # whisper's 448-token decoder context: 416 prompt + 32 new
+              "whisper-base": ("flash_attention", 3, 416)}
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_REQUESTS = 4, 4096, 32, 3
+# the reduced configs phase 4 serves on the card and on the CPU
+AGREE_ARCHS = ("qwen2-1.5b", "rwkv6-7b", "recurrentgemma-2b", "whisper-base")
+
+
+def prefill_launches(cfg) -> int:
+    """Launches of its prefill kernel per request: one per attention layer
+    (flash_attention: the dense layers, the hybrid's local-attention
+    layers, whisper's encoder, decoder self- and cross-attention layers)
+    or per layer (wkv_chunked)."""
+    if cfg.family == "hybrid":
+        return cfg.block_pattern.count("attn")
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
 
 
 def profile_prefill(cfg, params, prompts, dev):
@@ -1082,9 +1127,12 @@ def profile_prefill(cfg, params, prompts, dev):
 
 def run_serve(arch, dev, ops):
     """`serve_requests` at the full width and depth of `arch` in bf16 with
-    random weights; the launch counters are set to 0 just before it and
-    read just after. For rwkv6-7b one more prefill of the last prompts is
-    profiled. The weights are freed before returning."""
+    random weights (SERVE_RUNS: requests, prompt length; whisper from the
+    driver's zero frames); the launch counters are set to 0 just before it
+    and read just after: the arch's prefill kernel `prefill_launches` times
+    per request, the other serving kernel never. For rwkv6-7b one more
+    prefill of the last prompts is profiled. The weights are freed before
+    returning."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1093,31 +1141,34 @@ def run_serve(arch, dev, ops):
     from repro_torch.models import model as model_mod
 
     cfg = get_config(arch)
+    kernel, requests, prompt_len = SERVE_RUNS[arch]
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = model_mod.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     n_params = sum(t.numel() for t in flatten_tree(params).values())
 
     def prompts_fn(i):
         g = torch.Generator(device=dev).manual_seed(100 + i)
-        return torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+        return torch.randint(0, cfg.vocab_size, (SERVE_BATCH, prompt_len),
                              generator=g, device=dev, dtype=torch.int32)
 
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     out, stats = serve_requests(cfg, params, prompts_fn,
-                                num_requests=SERVE_REQUESTS,
-                                prompt_len=SERVE_PROMPT,
+                                num_requests=requests,
+                                prompt_len=prompt_len,
                                 gen_tokens=SERVE_GEN)
     total = time.perf_counter() - t0
     launches = ops.launch_counts()
     flash_routes = dict(ops.KERNELS["flash_attention"].route_launches)
-    kernel = SERVE_ARCHS[arch]
-    want = {name: (cfg.num_layers * SERVE_REQUESTS if name == kernel else 0)
-            for name in SERVE_ARCHS.values()}
+    per_request = prefill_launches(cfg)
+    want = {name: (per_request * requests if name == kernel else 0)
+            for name in ("flash_attention", "wkv_chunked")}
     got = {name: launches[name] for name in want}
     if got != want:
         raise AssertionError(f"{arch}: serving launches {got}, expected "
@@ -1127,28 +1178,36 @@ def run_serve(arch, dev, ops):
     if not all(stats["logits_finite"]):
         raise AssertionError(f"{arch}: logits not finite "
                              f"{stats['logits_finite']}")
-    new = out[:, SERVE_PROMPT:]
-    if out.shape != (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN) or \
+    new = out[:, prompt_len:]
+    if out.shape != (SERVE_BATCH, prompt_len + SERVE_GEN) or \
             int(new.min()) < 0 or int(new.max()) >= cfg.vocab_size:
         raise AssertionError(f"{arch}: tokens {tuple(out.shape)} in "
                              f"[{int(new.min())}, {int(new.max())}]")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    prof = (profile_prefill(cfg, params, prompts_fn(SERVE_REQUESTS - 1), dev)
-            if SERVE_ARCHS[arch] == "wkv_chunked" else None)
+    prof = (profile_prefill(cfg, params, prompts_fn(requests - 1), dev)
+            if kernel == "wkv_chunked" else None)
     del params, out, new
     torch.cuda.empty_cache()
     st = stats["stages"]
     pre, dec = st["prefill"], st["decode"]
+    print(f"serve {arch}: {n_params / 1e9:.3f} B parameters, prefill "
+          f"steady {pre['steady_s']:.4f} s, decode step "
+          f"{dec['steady_s'] / SERVE_GEN * 1e3:.2f} ms, {kernel} "
+          f"{launches[kernel]} launches, peak {peak_gb:.2f} GB (init "
+          f"{init_peak_gb:.2f} GB)", flush=True)
     return dict(
         arch=arch, params=n_params, init_s=init_s, total_s=total,
+        requests=requests, prompt_len=prompt_len, kernel=kernel,
+        launches_per_request=per_request,
         launches=launches, flash_routes=flash_routes,
         requests_s=stats["requests"],
         prefill_first_s=pre["first_s"], prefill_steady_s=pre["steady_s"],
         decode_first_s=dec["first_s"], decode_steady_s=dec["steady_s"],
-        prefill_tok_per_s=SERVE_BATCH * SERVE_PROMPT / pre["steady_s"],
+        prefill_tok_per_s=SERVE_BATCH * prompt_len / pre["steady_s"],
         decode_tok_per_s=SERVE_BATCH * SERVE_GEN / dec["steady_s"],
         decode_step_ms=dec["steady_s"] / SERVE_GEN * 1e3,
-        peak_mem_gb=peak_gb, prefill_profile=prof)
+        peak_mem_gb=peak_gb, init_peak_mem_gb=init_peak_gb,
+        prefill_profile=prof)
 
 
 # ---------------------------------------------------------------------------
@@ -1296,10 +1355,12 @@ def check_baseline_agreement(dev):
 
 
 def check_serve_agreement(dev):
-    """The reduced qwen2-1.5b and rwkv6-7b in f32 from the same weights
-    and prompts on the card (kernels) and the CPU (plain versions): greedy
-    tokens equal; prefill logits and the KV cache / rwkv state within 1e-4
-    of their scale."""
+    """The reduced qwen2-1.5b, rwkv6-7b, recurrentgemma-2b (window 16, so
+    the 80-token prompt wraps its ring) and whisper-base (random frames
+    for the prefill, the driver's zero frames for generation) in f32 from
+    the same weights and prompts on the card (kernels) and the CPU (plain
+    versions): greedy tokens equal; prefill logits and the KV cache / rwkv
+    state / LRU states and rings / cross k/v within 1e-4 of their scale."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1309,17 +1370,22 @@ def check_serve_agreement(dev):
     from repro_torch.utils.pytree import tree_map
 
     out = {}
-    for arch in SERVE_ARCHS:
+    for arch in AGREE_ARCHS:
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
         params = model_mod.init_params(cfg, torch.Generator().manual_seed(7),
                                        "cpu")
         card = tree_map(lambda t: t.to(dev), params)
+        gen = torch.Generator().manual_seed(8)
         toks = torch.randint(0, cfg.vocab_size, (2, 80), dtype=torch.int32,
-                             generator=torch.Generator().manual_seed(8))
+                             generator=gen)
+        batch = {"tokens": toks}
+        if cfg.family == "audio":
+            batch["frames"] = torch.randn(
+                (2, cfg.encoder_seq, cfg.d_model), generator=gen)
         res = {}
-        lc, cc = model_mod.prefill(cfg, params, {"tokens": toks}, max_seq=88)
-        lg, cg = model_mod.prefill(cfg, card, {"tokens": toks.to(dev)},
-                                   max_seq=88)
+        lc, cc = model_mod.prefill(cfg, params, batch, max_seq=88)
+        lg, cg = model_mod.prefill(cfg, card, tree_map(lambda t: t.to(dev),
+                                                       batch), max_seq=88)
         pairs = [("logits", lg.cpu(), lc)] + [
             (name, t.cpu(), flatten_tree(cc)[name])
             for name, t in flatten_tree(cg).items()]
@@ -1336,10 +1402,12 @@ def check_serve_agreement(dev):
             raise AssertionError(f"{arch}: greedy tokens differ between card "
                                  f"and CPU: {tg[:, 80:].tolist()} vs "
                                  f"{tc[:, 80:].tolist()}")
-        out[arch] = res
+        out[arch] = {"logits": res["logits"], "max_err": max(res.values()),
+                     "leaves": len(res)}
     return out
 
 
+# ---------------------------------------------------------------------------
 # phase 6: the comms fabric
 # ---------------------------------------------------------------------------
 
@@ -2974,6 +3042,145 @@ def driver_phase(cfg, fl, data, dev, ops, phase3_walls) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the hybrid family's recurrence and prefill
+# ---------------------------------------------------------------------------
+
+def check_lru_scan(dev):
+    """`rglru.rg_lru_scan` at recurrentgemma-2b's full width (B=4, S=4096,
+    W=2560, f32; a rec block's f32 weights and x ~ N(0, 1) from a seed)
+    against h_t = a_t·h_{t−1} + b_t run step by step in f64 on the card
+    from the scan's own (a, b) (`rglru.scan_inputs`): h and the last h
+    within 1e-5·max(1, max|h|) (the CPU measures 5e-7 of the scale at
+    B=1). The scan's time and its doubling part's, by CUDA events."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"),
+                              dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(11)
+    p = rglru.init_rglru_block(g, cfg, dev)
+    x = torch.randn((SERVE_BATCH, SERVE_PROMPT, cfg.lru_width), generator=g,
+                    device=dev)
+    h, last = rglru.rg_lru_scan(p, x)
+    a, b = rglru.scan_inputs(p, x)
+    a64, b64 = a.double(), b.double()
+    want = torch.empty_like(b64)
+    hh = torch.zeros_like(b64[:, 0])
+    for t in range(b64.shape[1]):
+        hh = a64[:, t] * hh + b64[:, t]
+        want[:, t] = hh
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want.abs().max()))
+    err = float((h.double() - want).abs().max())
+    last_err = float((last.double() - want[:, -1]).abs().max())
+    if not (err <= 1e-5 * scale and last_err <= 1e-5 * scale):
+        raise AssertionError(f"rg_lru_scan: error {err} (last {last_err}) "
+                             f"against the f64 recurrence, scale {scale}")
+    del a64, b64, want, hh
+    ms = time_ms(lambda: rglru.rg_lru_scan(p, x), 5, warmup=1)
+    scan_ms = time_ms(lambda: rglru.linear_scan(a, b), 5, warmup=1)
+    return dict(shape=list(x.shape), max_abs_err=err, last_err=last_err,
+                scale=scale, rel_err=err / scale, ms=ms,
+                doubling_steps=math.ceil(math.log2(x.shape[1])),
+                linear_scan_ms=scan_ms)
+
+
+def _is_gemm(key: str) -> bool:
+    """A cuBLAS GEMM kernel: `...gemm...`, or the `nvjet_...` kernels it
+    takes for bf16 on the H100."""
+    return "gemm" in key.lower() or key.startswith("nvjet")
+
+
+def _is_f32_gemm(key: str) -> bool:
+    """cuBLAS's f32 GEMM kernels without TF32 (`sgemm`, `f32f32_f32f32`)."""
+    return "sgemm" in key or "f32f32_f32f32" in key
+
+
+def profile_hybrid_prefill(dev, ops):
+    """One steady recurrentgemma-2b prefill (bf16, full width and depth,
+    B=4, S=4096) under torch.profiler, after a warm-up one: wall, device
+    kernel time, the device's idle share, flash_attention's share (its 8
+    launches, counted), the f32 GEMMs' share (the RG-LRU gates: two W×W
+    products per rec layer, 36 in all), the 16-bit GEMMs' and the
+    concatenations' (the doubling scan's `torch.cat`); the f32 gate GEMMs
+    once more by CUDA events at their shape. The top kernels
+    go to chiprun_out/chip_smoke_hybrid_prefill_profile.txt."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_serving_fns
+    from repro_torch.models import model as model_mod
+
+    cfg = get_config("recurrentgemma-2b")
+    params = model_mod.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=torch.Generator(device=dev).manual_seed(
+                                5), device=dev, dtype=torch.int32)
+    prefill_fn, _ = make_serving_fns(cfg, prompt_len=SERVE_PROMPT,
+                                     gen_tokens=SERVE_GEN)
+    prefill_fn(params, prompts)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill_fn(params, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_flash = ops.launch_counts()["flash_attention"]
+    if n_flash != prefill_launches(cfg):
+        raise AssertionError(f"recurrentgemma-2b prefill: {n_flash} flash "
+                             f"launches, expected {prefill_launches(cfg)}")
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in events)
+
+    def share(pred):
+        return sum(e.self_device_time_total for e in events if pred(e.key))
+
+    flash_us = share(lambda k: "flash_" in k)
+    gemm32_us = share(lambda k: _is_gemm(k) and _is_f32_gemm(k))
+    gemm16_us = share(lambda k: _is_gemm(k) and not _is_f32_gemm(k))
+    cat_us = share(lambda k: "CatArrayBatchedCopy" in k)
+    n_rec = cfg.block_pattern.count("rec")
+    xf = torch.randn((SERVE_BATCH * SERVE_PROMPT, cfg.lru_width),
+                     device=dev)
+    wf = torch.randn((cfg.lru_width, cfg.lru_width), device=dev)
+    gate_ms = time_ms(lambda: xf @ wf, 10)
+    del params, xf, wf
+    torch.cuda.empty_cache()
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:16]
+    lines = [f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  "
+             f"{e.key[:110]}" for e in top]
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_hybrid_prefill_profile.txt").write_text(
+        f"{card_line()}\n{cfg.name} prefill B={SERVE_BATCH} "
+        f"S={SERVE_PROMPT}: wall {wall:.4f} s, device {dev_us / 1e6:.4f} s, "
+        f"flash {flash_us / 1e6:.4f} s, f32 GEMMs {gemm32_us / 1e6:.4f} s, "
+        f"16-bit GEMMs {gemm16_us / 1e6:.4f} s\n" + "\n".join(lines) + "\n")
+    return dict(wall_s=wall, device_s=dev_us / 1e6,
+                idle_share=1.0 - dev_us / 1e6 / wall,
+                flash_launches=n_flash, flash_device_s=flash_us / 1e6,
+                flash_share=flash_us / dev_us,
+                gemm_f32_device_s=gemm32_us / 1e6,
+                gemm_f32_share=gemm32_us / dev_us,
+                gemm_16bit_device_s=gemm16_us / 1e6,
+                gemm_16bit_share=gemm16_us / dev_us,
+                cat_device_s=cat_us / 1e6, cat_share=cat_us / dev_us,
+                gate_gemm_event_s=2 * n_rec * gate_ms / 1e3,
+                gate_gemm_tflops=2.0 * SERVE_BATCH * SERVE_PROMPT
+                * cfg.lru_width ** 2 / gate_ms / 1e9,
+                top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                     for e in top[:8]])
+
+
 def main() -> int:
     try:
         import torch
@@ -3108,6 +3315,20 @@ def main() -> int:
     flashes += [flash_hd256,
                 check_flash(ops, ref, (1, 777, 1300, 6, 2, 96, True, 300,
                                        523), torch.float32, dev, 5)]
+    # the new serving paths' prefill shapes: recurrentgemma-2b (hd 256,
+    # window 2048), qwen2.5-14b (40 heads over 8), whisper-base's encoder
+    # (not causal) and its cross-attention (416 queries over 1500 keys)
+    flash_serving = {
+        name: check_flash(ops, ref, case, torch.bfloat16, dev, 5,
+                          library=True)
+        for name, case in (
+            ("recurrentgemma-2b", (4, 4096, 4096, 10, 1, 256, True, 2048,
+                                   0)),
+            ("qwen2.5-14b", (4, 4096, 4096, 40, 8, 128, True, 0, 0)),
+            ("whisper-base encoder", (4, 1500, 1500, 8, 8, 64, False, 0,
+                                      0)),
+            ("whisper-base cross", (4, 416, 1500, 8, 8, 64, False, 0, 0)))}
+    flashes += list(flash_serving.values())
     for row in flashes:
         print("flash_attention", json.dumps(row), flush=True)
     wkvs = [check_wkv(ops, ref, 4, 4096, 64, torch.bfloat16, -1.0, False,
@@ -3166,11 +3387,14 @@ def main() -> int:
     for run in paths:
         print("path", json.dumps(run), flush=True)
     serves = []
-    for arch in SERVE_ARCHS:
+    for arch in SERVE_RUNS:
         serves.append(run_serve(arch, dev, ops))
         print("serve", json.dumps(serves[-1]), flush=True)
-    launches.update({SERVE_ARCHS[r["arch"]]: r["launches"][SERVE_ARCHS[
-        r["arch"]]] for r in serves})
+    # each serving kernel's launches over the serving runs that use it
+    launches_serve = {r["arch"]: r["launches"][r["kernel"]] for r in serves}
+    for kernel in ("flash_attention", "wkv_chunked"):
+        launches[kernel] = sum(r["launches"][kernel] for r in serves
+                               if r["kernel"] == kernel)
     print("launches (each kernel in its path's run):", json.dumps(
         {**launches, "mask_evolve_leaves": evolve_leaves}),
           flush=True)
@@ -3263,6 +3487,17 @@ def main() -> int:
     walls["9 driver"] = time.perf_counter() - t_phase
     print(f"phase 9 wall: {walls['9 driver']:.1f} s", flush=True)
 
+    t_phase = time.perf_counter()
+    # ---- 10. the hybrid family: the RG-LRU scan and a profiled prefill -------
+    scan = check_lru_scan(dev)
+    print("rg_lru_scan (B=4, S=4096, W=2560, f32) against the sequential "
+          "f64 recurrence:", json.dumps(scan), flush=True)
+    hybrid_prof = profile_hybrid_prefill(dev, ops)
+    print("profile: recurrentgemma-2b steady prefill",
+          json.dumps(hybrid_prof), flush=True)
+    walls["10 hybrid"] = time.perf_counter() - t_phase
+    print(f"phase 10 wall: {walls['10 hybrid']:.1f} s", flush=True)
+
     # ---- output -------------------------------------------------------------
     k_main = main_sel[-1]
     assert k_main["matrix_cost"] and k_main["cand"]
@@ -3317,9 +3552,15 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:112",
          "routes": flash_routes,
          "launches": launches["flash_attention"],
+         "launches_serve": {a: n for a, n in launches_serve.items()
+                            if SERVE_RUNS[a][0] == "flash_attention"},
          "hd256": {k: flash_hd256[k] for k in (
              "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")},
+         "serving_shapes": {name: {k: row[k] for k in (
+             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")}
+             for name, row in flash_serving.items()},
          "max_abs_err": flashes[0]["max_abs_err"],
          "ms": flashes[0]["ms"], "plain_ms": flashes[0]["plain_ms"],
          "bound_ms": flashes[0]["bound_ms"],
@@ -3330,6 +3571,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/wkv_chunked.py:107",
          "kernels": list(WKV_KERNELS),
          "launches": launches["wkv_chunked"],
+         "launches_serve": {a: n for a, n in launches_serve.items()
+                            if SERVE_RUNS[a][0] == "wkv_chunked"},
          "max_abs_err": wkvs[0]["max_abs_err"],
          "ms": wkvs[0]["ms"], "plain_ms": wkvs[0]["plain_ms"],
          "bound_ms": wkvs[0]["bound_ms"], "bound_by": wkvs[0]["bound_by"],

@@ -1,14 +1,16 @@
 """Model/run configuration dataclasses — the port's own copy of
-`repro.configs.base`, trimmed to the fields the ported paths read.
+`repro.configs.base`.
 
-`ModelConfig` keeps the CNN family (the paper's ResNet-18/CIFAR) and the
-dense and ssm (RWKV6) LLM families that the serving path runs. The
-reference's MoE, MLA, hybrid, audio and vlm fields are not ported (ROADMAP
-queue 1 item 12). `FLConfig` keeps the Section III protocol and the
-network fabric (`CommsConfig`, `repro_torch.comms`), and the semi-async
-rounds' device model (`DeviceProfile`, `deadline_s`, `staleness_alpha`,
-`version_depth`; `repro_torch.fl.hetero`), and the open world
-(`ThreatConfig`, `ChurnConfig`; `repro_torch.openworld`).
+`ModelConfig` has every field of the reference's, with its defaults,
+`__post_init__`, properties, `param_count` and `reduced()`: the paper's
+ResNet-18/CIFAR (cnn) and the LLM families. The serving path runs the
+dense, ssm (RWKV6), hybrid (RecurrentGemma) and audio (Whisper) families;
+the moe and vlm families and MLA are not ported (ROADMAP queue 1 item 12),
+though their fields are here. `FLConfig` keeps the Section III protocol
+and the network fabric (`CommsConfig`, `repro_torch.comms`), and the
+semi-async rounds' device model (`DeviceProfile`, `deadline_s`,
+`staleness_alpha`, `version_depth`; `repro_torch.fl.hetero`), and the open
+world (`ThreatConfig`, `ChurnConfig`; `repro_torch.openworld`).
 """
 from __future__ import annotations
 
@@ -20,11 +22,8 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # cnn | dense | ssm are ported
-    dtype: str = "bfloat16"
-    source: str = ""               # citation of the published config
-
-    # --- LLM (dense, ssm) ----------------------------------------------------
+    family: str                    # dense | moe | ssm | hybrid | audio |
+                                   # vlm | cnn
     num_layers: int = 0
     d_model: int = 0
     num_heads: int = 0
@@ -36,7 +35,41 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     act: str = "silu"
-    ssm_head_dim: int = 64         # rwkv6 wkv head width
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    source: str = ""               # citation of the published config
+
+    # --- MoE ---------------------------------------------------------------
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0              # per-expert FFN width (0 → d_ff)
+    moe_dispatch: str = "gather"   # "gather" (prod) | "einsum" (GShard ref)
+
+    # --- MLA (deepseek) ------------------------------------------------------
+    use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+
+    # --- SSM (rwkv6) ---------------------------------------------------------
+    ssm_head_dim: int = 64         # wkv head width
+
+    # --- hybrid (recurrentgemma) ----------------------------------------------
+    block_pattern: Tuple[str, ...] = ()   # e.g. ("rec", "rec", "attn")
+    window_size: int = 0                  # local attention window
+    lru_width: int = 0                    # 0 → d_model
+
+    # --- encoder-decoder (whisper) ---------------------------------------------
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    encoder_seq: int = 1500        # stub frame-embedding sequence length
+
+    # --- modality frontend stub (audio/vlm) -------------------------------------
+    frontend: str = "none"         # none | audio_stub | vision_stub
+    num_prefix_tokens: int = 0     # vision patch tokens prepended to text
 
     # --- CNN (the paper's resnet) ----------------------------------------------
     cnn_stages: Tuple[int, ...] = ()      # blocks per stage
@@ -50,6 +83,10 @@ class ModelConfig:
             object.__setattr__(self, "num_kv_heads", self.num_heads)
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.moe_d_ff == 0 and self.num_experts:
+            object.__setattr__(self, "moe_d_ff", self.d_ff)
+        if self.lru_width == 0:
+            object.__setattr__(self, "lru_width", self.d_model)
 
     @property
     def padded_vocab(self) -> int:
@@ -58,29 +95,72 @@ class ModelConfig:
         return ((self.vocab_size + 255) // 256) * 256
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Whether the decode state does not grow with the context."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def n_rep(self) -> int:
         """GQA repetition factor."""
         return max(1, self.num_heads // max(1, self.num_kv_heads))
 
+    def param_count(self) -> int:
+        """Analytic parameter count (`models.model.count_params`)."""
+        from repro_torch.models.model import count_params  # lazy: a cycle
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.model import count_params
+        return count_params(self, active_only=True)
+
     def reduced(self) -> "ModelConfig":
         """Same-family CPU smoke variant (reference `ModelConfig.reduced`):
-        an LLM keeps ≤2 layers, d_model ≤ 256, ≤4 heads, d_ff ≤ 512 and a
-        vocabulary ≤ 512; the CNN two stages of one block at width 16."""
-        changes = dict(name=self.name + "-smoke")
+        ≤2 layers, d_model ≤ 256, ≤4 heads, d_ff ≤ 512, a vocabulary
+        ≤ 512, ≤4 experts, a window ≤ 16 and the first three blocks of a
+        hybrid pattern; the CNN two stages of one block at width 16."""
+        d_model = min(self.d_model, 256)
+        heads = min(self.num_heads, 4)
+        kv = min(self.num_kv_heads, heads)
+        head_dim = max(8, d_model // heads) if heads else 0
+        changes = dict(
+            name=self.name + "-smoke",
+            num_layers=min(self.num_layers, 2),
+            d_model=d_model,
+            num_heads=heads,
+            num_kv_heads=kv,
+            head_dim=head_dim,
+            d_ff=min(self.d_ff, 512),
+            vocab_size=min(self.vocab_size, 512),
+            encoder_layers=min(self.encoder_layers, 2),
+            encoder_seq=min(self.encoder_seq, 32),
+            num_prefix_tokens=min(self.num_prefix_tokens, 8),
+            window_size=min(self.window_size, 16) if self.window_size else 0,
+            lru_width=0,
+        )
+        if self.num_experts:
+            changes.update(
+                num_experts=min(self.num_experts, 4),
+                num_experts_per_tok=min(self.num_experts_per_tok, 2),
+                num_shared_experts=min(self.num_shared_experts, 1),
+                moe_d_ff=min(self.moe_d_ff, 256),
+            )
+        if self.use_mla:
+            changes.update(
+                q_lora_rank=min(self.q_lora_rank, 64) or 0,
+                kv_lora_rank=min(self.kv_lora_rank, 64),
+                qk_nope_head_dim=32,
+                qk_rope_head_dim=16,
+                v_head_dim=32,
+            )
+        if self.block_pattern:
+            pattern = self.block_pattern[:3]
+            changes.update(block_pattern=pattern, num_layers=len(pattern))
         if self.family == "cnn":
             changes.update(cnn_stages=(1, 1), cnn_width=16)
-        else:
-            d_model = min(self.d_model, 256)
-            heads = min(self.num_heads, 4)
-            changes.update(
-                num_layers=min(self.num_layers, 2),
-                d_model=d_model,
-                num_heads=heads,
-                num_kv_heads=min(self.num_kv_heads, heads),
-                head_dim=max(8, d_model // heads) if heads else 0,
-                d_ff=min(self.d_ff, 512),
-                vocab_size=min(self.vocab_size, 512),
-            )
         return dataclasses.replace(self, **changes)
 
 

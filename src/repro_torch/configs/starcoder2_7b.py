@@ -1,0 +1,16 @@
+"""starcoder2-7b [arXiv:2402.19173] — GQA, RoPE."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-7b",
+    family="dense",
+    num_layers=32,
+    d_model=4608,
+    num_heads=36,
+    num_kv_heads=4,
+    d_ff=18432,
+    vocab_size=49152,
+    act="gelu",
+    rope_theta=1e6,
+    source="arXiv:2402.19173",
+)

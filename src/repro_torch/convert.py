@@ -11,9 +11,9 @@ dict states (params, optimizer state, round, dispfl's masks). Leaves may
 carry leading axes (a stacked population): only the last four axes of a
 conv weight are transposed.
 
-The LLM families (dense, ssm) keep the reference's nested dicts and
-layout unchanged: (L, …) stacked leaves, (d_in, d_out) weights that the
-port applies as x @ W. The HWIO↔OIHW transpose is a property of the cnn
+The LLM families keep the reference's nested dicts and layout unchanged:
+(L, …) stacked leaves (dense, ssm, audio), the hybrid family's list of
+per-layer dicts, (d_in, d_out) weights that the port applies as x @ W. The HWIO↔OIHW transpose is a property of the cnn
 family; it applies to a cnn tree's conv leaves and to no other family's.
 """
 from __future__ import annotations
@@ -80,19 +80,31 @@ def unflatten_tree(flat: dict) -> dict:
     return listify(root)
 
 
+def _leaf_to_tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy leaf → a CPU tensor of its dtype (copied). A bfloat16 leaf
+    (the reference's arrays of a bf16 model, numpy dtype `bfloat16`)
+    keeps its bits, moved through a 16-bit integer view."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_reference(np_tree, device="cuda", *,
                           family: str = "cnn") -> dict:
     """Reference params (numpy, any leading axes) → the port's params on
-    `device` (arrays are copied): a flat dict with OIHW convs for the cnn
-    family, the reference's nested dicts unchanged for the LLM families.
-    Raises if `device` names CUDA and there is none."""
+    `device` (arrays are copied, dtypes kept, bfloat16 included): a flat
+    dict with OIHW convs for the cnn family, the reference's nested dicts
+    and lists unchanged for the LLM families (the hybrid family's list of
+    layer dicts, its f32 `lambda` leaves in a bf16 model). Raises if
+    `device` names CUDA and there is none."""
     device = resolve_device(device)
     out = {}
     for name, leaf in flatten_tree(np_tree).items():
         a = np.asarray(leaf)
         if _is_conv(name, family):
             a = _hwio_to_oihw(a)
-        out[name] = torch.from_numpy(np.array(a)).to(device)
+        out[name] = _leaf_to_tensor(a).to(device)
     return out if family == "cnn" else unflatten_tree(out)
 
 

@@ -1,9 +1,12 @@
-"""Batched serving — prefill + greedy decode for the dense and ssm
-LLM families (reference `repro.launch.serve`).
+"""Batched serving — prefill + greedy decode for the dense, ssm, hybrid
+and audio LLM families (reference `repro.launch.serve`).
 
 `generate` prefills a batch of prompts and decodes one token at a time
 with the family's cache (the KV cache of the dense family, the WKV state
-of rwkv6). `make_serving_fns` splits the two phases so `serve_requests`
+of rwkv6, the LRU states and window rings of recurrentgemma, whisper's
+decoder self-cache and cross k/v). The audio family's frames are the
+reference driver's stub: zeros of shape (B, encoder_seq, d_model) in the
+model dtype. `make_serving_fns` splits the two phases so `serve_requests`
 can time each per request with a first/steady split (`StageTimes`):
 request 0 pays the kernels' build and the libraries' warm-up, later
 requests measure the steady state.
@@ -34,9 +37,22 @@ from repro_torch.checkpoint import latest_checkpoint, load_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_mod
+from repro_torch.models.layers import torch_dtype
 from repro_torch.obs.timers import StageTimes
 
 PREFILL_BACKEND = "flash"
+
+
+def serving_batch(cfg, prompts) -> dict:
+    """The prefill's batch for prompts (B, S): the tokens, and for the
+    audio family zero frames (B, encoder_seq, d_model) in cfg.dtype on the
+    prompts' device, as the reference's driver feeds them."""
+    batch = {"tokens": prompts}
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros(
+            (prompts.shape[0], cfg.encoder_seq, cfg.d_model),
+            dtype=torch_dtype(cfg.dtype), device=prompts.device)
+    return batch
 
 
 def _next_token(cfg, logits, greedy: bool, generator):
@@ -76,7 +92,8 @@ def generate(cfg, params, prompts, *, gen_tokens: int, greedy=True,
              generator=None):
     """prompts (B, S) int → (B, S + gen) tokens, on the prompts' device."""
     b, s = prompts.shape
-    logits, cache = model_mod.prefill(cfg, params, {"tokens": prompts},
+    logits, cache = model_mod.prefill(cfg, params,
+                                      serving_batch(cfg, prompts),
                                       max_seq=s + gen_tokens,
                                       backend=PREFILL_BACKEND)
     if generator is None:
@@ -97,7 +114,8 @@ def make_serving_fns(cfg, *, prompt_len: int, gen_tokens: int, greedy=True):
     max_seq = prompt_len + gen_tokens
 
     def prefill_fn(params, prompts):
-        logits, cache = model_mod.prefill(cfg, params, {"tokens": prompts},
+        logits, cache = model_mod.prefill(cfg, params,
+                                          serving_batch(cfg, prompts),
                                           max_seq=max_seq,
                                           backend=PREFILL_BACKEND)
         return logits[:, -1:].float(), cache

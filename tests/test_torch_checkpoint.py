@@ -2,8 +2,9 @@
 on-disk format: round trips of f32, bf16, int32 and bool leaves in nested
 dicts, lists and a PopulationState with a peer store; `latest_checkpoint`;
 a file either package writes, read by the other bitwise by path; reduced
-qwen2-1.5b parameters saved by the reference and restored with
-`load_checkpoint(like=...)`, equal to `convert.params_from_reference`;
+qwen2-1.5b and recurrentgemma-2b parameters saved by either package and
+restored by the other (`load_checkpoint(like=...)`), equal to
+`convert.params_from_reference`;
 and `launch.serve --ckpt-dir` on the CPU. Every comparison is exact.
 """
 import dataclasses
@@ -160,6 +161,58 @@ def test_reference_llm_checkpoint_restores_into_port_params(tmp_path):
                                       ref_tree_paths(rparams)):
         assert str(a.dtype).removeprefix("torch.") == str(r.dtype)
         assert torch.equal(a.float(), b)
+
+
+def test_hybrid_checkpoint_round_trips_in_both_formats(tmp_path):
+    """Reduced recurrentgemma-2b (bf16, with f32 `lambda` leaves, its
+    layers a list of dicts): the reference's parameters saved by the
+    reference restore into the port's tree bitwise and equal to
+    `convert.params_from_reference` (which keeps the bf16 bits); the
+    port's saved by the port restore in the reference bitwise; and
+    `convert` takes the tree both ways without touching `conv_w`."""
+    ref_cfg = ref_get_config("recurrentgemma-2b").reduced()
+    cfg = get_config("recurrentgemma-2b").reduced()
+    rparams = ref_model.init_params(ref_cfg, jax.random.PRNGKey(4))
+    like = model_mod.init_params(cfg, torch.Generator().manual_seed(0),
+                                 torch.device("cpu"))
+    assert isinstance(like["layers"], list) and len(like["layers"]) == 3
+    assert [p for p, _ in tree_paths(like)] == \
+        [p for p, _ in ref_tree_paths(rparams)]
+    got, _ = load_checkpoint(ref_save(str(tmp_path / "ref"), 0, rparams),
+                             like=like, device="cpu")
+    assert isinstance(got["layers"], list)
+    assert got["layers"][0]["temporal"]["lambda"].dtype == torch.float32
+    assert got["layers"][0]["temporal"]["conv_w"].dtype == torch.bfloat16
+    want = convert.params_from_reference(
+        jax.tree_util.tree_map(np.asarray, rparams), device="cpu",
+        family="hybrid")
+    assert isinstance(want["layers"], list)
+    for (pa, a), (pb, b) in zip(tree_paths(got), tree_paths(want)):
+        assert pa == pb
+        _same(a, b)
+    for (p, a), (_, r) in zip(tree_paths(got), ref_tree_paths(rparams)):
+        assert str(a.dtype).removeprefix("torch.") == str(r.dtype), p
+        assert tuple(a.shape) == r.shape, p
+    # the port's file in the reference
+    back, _ = ref_load(save_checkpoint(str(tmp_path / "port"), 1, like),
+                       like=rparams)
+    assert isinstance(back["layers"], list)
+    for (p, a), (_, t) in zip(ref_tree_paths(back), tree_paths(like)):
+        assert str(a.dtype) == str(t.dtype).removeprefix("torch."), p
+        if t.dtype == torch.bfloat16:
+            np.testing.assert_array_equal(
+                np.asarray(a).view(np.uint16),
+                t.view(torch.int16).numpy().view(np.uint16))
+        else:
+            np.testing.assert_array_equal(np.asarray(a), t.numpy())
+    # convert back: the same list layout, conv_w (4, W) as it was
+    ref_tree = convert.params_to_reference(like, family="hybrid")
+    assert isinstance(ref_tree["layers"], list)
+    conv_w = ref_tree["layers"][0]["temporal"]["conv_w"]
+    assert conv_w.shape == (4, cfg.lru_width)
+    np.testing.assert_array_equal(
+        conv_w, like["layers"][0]["temporal"]["conv_w"].float().numpy())
+    assert ref_tree["layers"][0]["temporal"]["lambda"].dtype == np.float32
 
 
 def test_load_checkpoint_without_device_needs_cuda(tmp_path, monkeypatch):

@@ -1060,3 +1060,93 @@ def test_driver_cli_runs_on_card(cuda, capsys):
         assert hist.rounds == [2]
         assert all(math.isfinite(x) for x in hist.accuracy + hist.train_loss)
     assert "final personalized accuracy" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the hybrid and audio families' serving path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "whisper-base"])
+def test_hybrid_and_encdec_prefill_on_card_agree_with_cpu(cuda, arch):
+    """Reduced f32 recurrentgemma-2b (a 40-token prompt wraps the window of
+    16 twice) and whisper-base (random frames), the same weights on both:
+    the card's prefill (the flash kernel, once per attention layer) and
+    the CPU's (the plain version) give logits and states within 1e-4 of
+    their scale, and greedy tokens are equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import flatten_tree
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    params = model.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    card = tree_map(lambda t: t.to(cuda), params)
+    gen = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                     dtype=torch.int32, generator=gen)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                      generator=gen)
+    want_logits, want_state = model.prefill(cfg, params, batch, max_seq=48)
+    ops.reset_launch_counts()
+    logits, state = model.prefill(cfg, card,
+                                  tree_map(lambda t: t.to(cuda), batch),
+                                  max_seq=48)
+    n_attn = (cfg.block_pattern.count("attn") if cfg.family == "hybrid"
+              else cfg.encoder_layers + 2 * cfg.num_layers)
+    assert ops.launch_counts()["flash_attention"] == n_attn
+    pairs = [(logits, want_logits)] + [
+        (t, flatten_tree(want_state)[n])
+        for n, t in flatten_tree(state).items()]
+    for got, want in pairs:
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+    toks = batch["tokens"]
+    assert torch.equal(generate(cfg, card, toks.to(cuda), gen_tokens=6).cpu(),
+                       generate(cfg, params, toks, gen_tokens=6))
+
+
+@pytest.mark.cuda
+def test_hybrid_bf16_prefill_takes_the_wgmma_hd256_route(cuda):
+    """A bf16 hybrid at head_dim 256 (recurrentgemma-2b's) prefills its
+    windowed attention on the wgmma kernel's hd-256 instance, once per
+    attention layer, with finite logits."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b").reduced(),
+                              head_dim=256)
+    params = model.init_params(cfg, torch.Generator(device=cuda).manual_seed(
+        0), cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 300), device=cuda,
+                         dtype=torch.int32)
+    ops.reset_launch_counts()
+    logits, _ = model.prefill(cfg, params, {"tokens": toks}, max_seq=310)
+    assert fa.flash_attention_cuda.route_launches == {
+        "ffma": 0, "wgmma": cfg.block_pattern.count("attn")}
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+def test_lru_doubling_scan_on_card_matches_sequential_recurrence(cuda):
+    """`rglru.linear_scan` (⌈log2 S⌉ doubling steps) on the card against
+    h_t = a_t·h_{t−1} + b_t step by step in f64: within 1e-5 of the scale
+    at S = 1000 (not a power of two), a in (0.9, 1)."""
+    from repro_torch.models import rglru
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    a = 0.9 + 0.1 * torch.rand((2, 1000, 64), generator=g, device=cuda)
+    b = torch.randn((2, 1000, 64), generator=g, device=cuda)
+    got = rglru.linear_scan(a, b).double()
+    h = torch.zeros((2, 64), dtype=torch.float64, device=cuda)
+    for t in range(1000):
+        h = a[:, t].double() * h + b[:, t].double()
+        scale = max(1.0, float(h.abs().max()))
+        assert float((got[:, t] - h).abs().max()) <= 1e-5 * scale, t

@@ -1,7 +1,8 @@
 """The port's serving path against the JAX reference: the plain versions
 of the two serving kernels (flash_attention, wkv_chunked), the LLM layers,
-prefill, decode and greedy generation of qwen2-1.5b and rwkv6-7b (reduced
-configs, float32), and `convert` on LLM trees.
+the "chunked" attention backend, prefill, decode and greedy generation of
+qwen2-1.5b, starcoder2-7b and rwkv6-7b (reduced configs, float32), the
+configs and their parameter counts, and `convert` on LLM trees.
 
 The same numpy inputs, made from a seed, go to both packages. The
 reference's Pallas kernels run in interpret mode, as its own tests run
@@ -16,15 +17,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_REGISTRY as REF_REGISTRY
 from repro.configs import get_config as ref_get_config
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.wkv_chunked import wkv_chunked as pallas_wkv
 from repro.launch.serve import generate as ref_generate
+from repro.models import attention as ref_attention
 from repro.models import layers as ref_layers
 from repro.models import model as ref_model
 from repro_torch import convert
-from repro_torch.configs import ModelConfig, get_config
+from repro_torch.configs import ARCH_REGISTRY, ModelConfig, get_config
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.wkv_chunked import wkv_chunked_plain
@@ -349,7 +352,7 @@ def test_apply_rope_makes_frequencies_once_per_device():
 # the models: prefill, decode, generation
 # ---------------------------------------------------------------------------
 
-ARCHS = ["qwen2-1.5b", "rwkv6-7b"]
+ARCHS = ["qwen2-1.5b", "starcoder2-7b", "rwkv6-7b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -375,16 +378,76 @@ def served(request):
 
 
 def test_reduced_configs_match_reference():
-    for arch in ARCHS:
+    """Every registered config and its reduced() equal the reference's,
+    field by field, with the same derived properties."""
+    for arch in ARCH_REGISTRY:
         want = ref_get_config(arch)
         for cfg, rcfg in ((get_config(arch), want),
                           (get_config(arch).reduced(), want.reduced())):
-            for f in dataclasses.fields(cfg):
-                if f.name not in ("cnn_stages", "cnn_width"):
-                    assert getattr(cfg, f.name) == getattr(rcfg, f.name), \
-                        (arch, f.name)
-            assert cfg.padded_vocab == rcfg.padded_vocab
-            assert cfg.n_rep == rcfg.n_rep
+            names = [f.name for f in dataclasses.fields(cfg)]
+            assert sorted(names) == sorted(f.name for f in
+                                           dataclasses.fields(rcfg))
+            for name in names:
+                assert getattr(cfg, name) == getattr(rcfg, name), \
+                    (arch, name)
+            for prop in ("padded_vocab", "n_rep", "is_attention_free",
+                         "sub_quadratic"):
+                assert getattr(cfg, prop) == getattr(rcfg, prop), \
+                    (arch, prop)
+
+
+def _port_config(rcfg):
+    """The port's ModelConfig built from a reference config's fields."""
+    return ModelConfig(**{f.name: getattr(rcfg, f.name)
+                          for f in dataclasses.fields(rcfg)})
+
+
+@pytest.mark.parametrize("arch", sorted(REF_REGISTRY))
+def test_param_counts_match_reference(arch):
+    """count_params, param_count and active_param_count (every family's
+    branch, MLA and experts included) equal the reference's for all of
+    its configs, full and reduced, built from the reference's fields."""
+    for rcfg in (REF_REGISTRY[arch], REF_REGISTRY[arch].reduced()):
+        cfg = _port_config(rcfg)
+        assert model.count_params(cfg) == ref_model.count_params(rcfg)
+        assert model.count_params(cfg, active_only=True) == \
+            ref_model.count_params(rcfg, active_only=True)
+        assert cfg.param_count() == rcfg.param_count()
+        assert cfg.active_param_count() == rcfg.active_param_count()
+
+
+# (B, Sq, Skv, H, K, hd, causal, window, q_offset): several 1024 blocks,
+# ragged ends (padding), a window, a continuation chunk, not causal
+CHUNKED_CASES = [
+    (1, 2500, 2500, 4, 2, 16, True, 0, 0),
+    (1, 2500, 2500, 2, 1, 16, True, 700, 0),
+    (1, 1400, 2600, 2, 2, 16, True, 300, 1200),
+    (1, 1100, 2100, 2, 1, 16, False, 0, 0),
+]
+
+
+@pytest.mark.parametrize("case", CHUNKED_CASES,
+                         ids=lambda c: "q{}-kv{}-h{}-k{}-c{}-w{}-o{}".format(
+                             *(int(x) for x in c[1:5] + c[6:])))
+def test_chunked_attention_matches_reference(case):
+    """attend(backend="chunked") — the reference's static block schedule,
+    online softmax and clamps — against the reference's and against the
+    naive route: f32 within 1e-5 of the output's scale."""
+    b, sq, skv, h, kh, hd, causal, window, q_offset = case
+    rng = np.random.default_rng(sum(case))
+    q = rng.normal(size=(b, sq, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, skv, kh, hd)).astype(np.float32)
+    v = rng.normal(size=(b, skv, kh, hd)).astype(np.float32)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = attention.attend(*(torch.from_numpy(a) for a in (q, k, v)),
+                           backend="chunked", **kw)
+    assert got.shape == (b, sq, h, hd) and got.dtype == torch.float32
+    want = ref_attention.attend(*(jnp.asarray(a) for a in (q, k, v)),
+                                backend="chunked", **kw)
+    _close_to_scale(got.numpy(), np.asarray(want), 1e-5, "reference")
+    naive = attention.attend(*(torch.from_numpy(a) for a in (q, k, v)),
+                             backend="naive", **kw)
+    _close_to_scale(got.numpy(), naive.numpy(), 1e-5, "naive")
 
 
 @pytest.mark.parametrize("backend", ["flash", "naive"])
@@ -499,6 +562,20 @@ def test_serve_main_runs_on_cpu(tmp_path, capsys):
     assert out_json.exists()
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "whisper-base",
+                                  "qwen2.5-3b"])
+def test_serve_main_runs_new_archs_on_cpu(arch, capsys):
+    """The driver serves the hybrid and audio families (whisper from the
+    driver's zero frames) and a qwen2.5 config, reduced, on the CPU; the
+    prompt (20) wraps recurrentgemma's reduced window (16)."""
+    out = __import__("repro_torch.launch.serve", fromlist=["main"]).main(
+        ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+         "--prompt-len", "20", "--gen", "3", "--requests", "2"])
+    assert out.shape == (2, 23)
+    assert int(out.max()) < get_config(arch).reduced().vocab_size
+    assert f"arch={arch}-smoke" in capsys.readouterr().out
+
+
 # ---------------------------------------------------------------------------
 # convert, and what is not ported
 # ---------------------------------------------------------------------------
@@ -547,15 +624,20 @@ def test_init_params_matches_reference_layout():
 
 
 def test_unported_families_and_backends_raise():
-    moe = ModelConfig(name="m", family="moe", num_layers=1, d_model=8,
-                      num_heads=2, d_ff=16, vocab_size=32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        model.init_params(moe, torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        model.prefill(moe, {}, {"tokens": torch.zeros(1, 2)}, max_seq=2)
+    """moe and vlm are not ported; nor is rwkv's "chunked" prefill. The
+    attention backend "chunked" is (test_chunked_attention_matches_
+    reference); an unknown backend raises."""
+    for family in ("moe", "vlm"):
+        cfg = ModelConfig(name="m", family=family, num_layers=1, d_model=8,
+                          num_heads=2, d_ff=16, vocab_size=32)
+        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+            model.init_params(cfg, torch.Generator(), "cpu")
+        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+            model.prefill(cfg, {}, {"tokens": torch.zeros(1, 2)}, max_seq=2)
     q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        attention.attend(q, q, q, backend="chunked")
+    assert attention.attend(q, q, q, backend="chunked").shape == q.shape
+    with pytest.raises(ValueError, match="unknown attention backend"):
+        attention.attend(q, q, q, backend="blocked")
     cfg = get_config("rwkv6-7b").reduced()
     with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         rwkv.rwkv_prefill({}, torch.zeros(1, 2, dtype=torch.int32), cfg,

@@ -23,6 +23,16 @@ def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+def close_to_scale(got, want, rel, what=""):
+    """max |got − want| ≤ rel · max(1, max |want|), in float32 numpy;
+    → the error."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    assert err <= rel * scale, (what, err, scale)
+    return err
+
+
 def to_torch(a, dtype=None):
     """A jax or numpy array → a CPU torch tensor."""
     t = torch.from_numpy(np.array(a))
