@@ -71,8 +71,15 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             of the plain version, SDPA beside it: recurrentgemma-2b (4,
             4096, 4096, 10/1, hd 256, causal, window 2048), qwen2.5-14b
             (4, 4096, 4096, 40/8, hd 128, causal), whisper-base's encoder
-            (4, 1500, 1500, 8/8, hd 64, not causal) and its cross-attention
-            (4, 416 queries, 1500 keys, 8/8, hd 64, not causal).
+            (4, 1500, 1500, 8/8, hd 64, not causal), its cross-attention
+            (4, 416 queries, 1500 keys, 8/8, hd 64, not causal),
+            phi3.5-moe (4, 4096, 4096, 32/8, hd 128, causal) and
+            internvl2-76b (4, 4096, 4096, 64/8, hd 128, causal);
+            deepseek-v3's MLA prefill (4, 4096, 4096, 128/128; q/k head
+            dim 192 and v's 128, all zero-padded to the hd-256 instance):
+            within one ulp of the plain version, SDPA (Ev ≠ E, no GQA
+            flag) beside it, its bound on the true dims (2·pairs·(192 +
+            128) operations; the bytes of the unpadded q, k, v and out).
             wkv_chunked, its two kernels (state pass, output pass) per call
             (rwkv6-7b prefill: B=4, S=4096, H=64, hd=64, r/k/v bf16,
             w = exp(−exp(U[−6, −1])) f32: one bf16 ulp; an f32 case with
@@ -111,11 +118,16 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             (SERVE_RUNS): qwen2-1.5b, rwkv6-7b and recurrentgemma-2b
             (prompt 4096, 3 requests), qwen2.5-3b, qwen2.5-14b and
             starcoder2-7b (prompt 4096, 2 requests), whisper-base (1500
-            zero frames, the driver's stub; prompt 416, 3 requests), the
-            launch counters set to 0 just before each: the prefill kernel
-            must run once per attention layer per request, flash_attention
-            (qwen2 28, recurrentgemma 8, qwen2.5-3b 36, qwen2.5-14b 48,
-            starcoder2 32, whisper 6 + 6 + 6), all on the wgmma route, or
+            zero frames, the driver's stub; prompt 416, 3 requests), and
+            at full width but cut depth (SERVE_DEPTHS; the full depth does
+            not fit one card) phi3.5-moe (16 of 32 layers), deepseek-v3
+            (MLA; 2 of 61) and internvl2-76b (text tokens only; 16 of 80),
+            prompt 4096, 2 requests each; the launch counters set to 0
+            just before each: the prefill kernel must run once per
+            attention layer per request, flash_attention (qwen2 28,
+            recurrentgemma 8, qwen2.5-3b 36, qwen2.5-14b 48, starcoder2 32,
+            whisper 6 + 6 + 6, phi3.5-moe 16, deepseek-v3 2, internvl2-76b
+            16), all on the wgmma route, or
             wkv_chunked once per layer (32), the other one never; logits
             finite, tokens inside the vocabulary; peak memory printed. After the rwkv6-7b requests, one more
             steady prefill of the same model and prompts runs under
@@ -130,11 +142,14 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             1e-3; dispfl edges exact, masks exact apart from counted
             entries within rtol 2e-3 of their leaf's threshold, the other
             params rtol 1e-3. Serving at the reduced qwen2-1.5b, rwkv6-7b,
-            recurrentgemma-2b (its window of 16 wrapped by the prompt) and
-            whisper-base (random frames) configs in f32 (batch 2, prompt
-            80, 8 tokens), the same weights on both: greedy tokens equal,
-            prefill logits and the KV cache / rwkv state / LRU states and
-            rings / cross k/v within 1e-4 of their scale.
+            recurrentgemma-2b (its window of 16 wrapped by the prompt),
+            whisper-base (random frames), phi3.5-moe (both dispatch
+            modes), deepseek-v3 and internvl2-76b configs in f32 (batch 2,
+            prompt 80, 8 tokens), the same weights on both: greedy tokens
+            equal, prefill logits and the KV / MLA latent cache / rwkv
+            state / LRU states and rings / cross k/v within 1e-4 of their
+            scale; the MoE configs' routing choices (gate_idx, keep)
+            all equal.
 5. profile  one more pfeddst round under torch.profiler; the top CUDA
             kernels by time go to chiprun_out/chip_smoke_profile.txt (the
             engine's `stage:<name>` ranges are left out of the kernel
@@ -266,13 +281,22 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             share (the RG-LRU gates) and the 16-bit GEMMs'; the gate GEMMs
             once more by CUDA events (chiprun_out/
             chip_smoke_hybrid_prefill_profile.txt).
+11. moe     phi3.5-moe (16 layers) and deepseek-v3 (2 layers) at full
+            width in bf16, B=4, S=4096: (b) each layer's share of dropped
+            assignments, read in a first prefill; (a) two more identical
+            prefills must give bitwise-equal logits (the combine sums a
+            token's experts in a fixed order); (c) one more steady
+            phi3.5-moe prefill under torch.profiler: device time, idle
+            share, the expert GEMMs' share, route + dispatch + combine
+            (the `moe:` ranges), flash's and lm_head's (CUDA events)
+            (chiprun_out/chip_smoke_moe_prefill_profile.txt).
 
 Output: each phase's wall, the card's name and power limit (nvidia-smi),
 one `kernels` JSON line (`launches` from phase 3's run of the kernel's
 path, `launches_fabric` from each phase-6 run, select_topk's
 `launches_async` from phase 7 (b); `launches_openworld` of select_topk,
 gossip_mix and mask_evolve from each phase-8 run; `launches_driver` of
-the same three from each phase-9 run; flash's `hd256` row and its
+the same three from each phase-9 run; flash's `hd256`, `mla` and
 `serving_shapes` rows from phase 2, and `launches_serve`, each serving
 run's launches, from phase 3; mask_evolve's count calls,
 each of 3–5 kernel launches, and its row also gives the leaves those
@@ -816,19 +840,22 @@ def visible_pairs(sq, skv, *, causal, window, q_offset) -> int:
 
 
 def check_flash(ops, ref, case, dtype, dev, iters, *, plain=True,
-                library=False):
+                library=False, dv=None):
     """One flash_attention case: the kernel of its dtype's route (bf16,
     f16: wgmma; f32: FFMA) against the plain version (f32: 1e-5·max(1,
-    max|out|); bf16, f16: one ulp), times, and the bound."""
+    max|out|); bf16, f16: one ulp), times, and the bound. `dv` is v's
+    head dim where it is below q/k's (MLA: v zero-padded to hd by
+    `ops.flash_attention`); the bound counts the true dims."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     b, sq, skv, h, kh, hd, causal, window, q_offset = case
+    dv = dv or hd
     g = torch.Generator(device=dev).manual_seed(sum(case))
     q = torch.randn((b, sq, h, hd), generator=g, device=dev).to(dtype)
     k = torch.randn((b, skv, kh, hd), generator=g, device=dev).to(dtype)
-    v = torch.randn((b, skv, kh, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, skv, kh, dv), generator=g, device=dev).to(dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     routes = fa.flash_attention_cuda.route_launches
     before = dict(routes)
@@ -842,6 +869,8 @@ def check_flash(ops, ref, case, dtype, dev, iters, *, plain=True,
         raise AssertionError(f"flash_attention {case}: output not finite")
     row = dict(shape=list(case), dtype=str(dtype).split(".")[-1],
                route=route[0])
+    if dv != hd:
+        row["dv"] = dv
     if plain:
         want = ops.flash_attention(q, k, v, impl="plain", **kw)
         torch.cuda.synchronize()
@@ -869,18 +898,22 @@ def check_flash(ops, ref, case, dtype, dev, iters, *, plain=True,
     if library:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
+        # MLA (H = K, dv < hd) goes without the GQA flag, which keeps SDPA
+        # off the backends that take Ev ≠ E
+        gqa = dict(enable_gqa=True) if h != kh or dv == hd else {}
         if window or q_offset:      # SDPA's is_causal has no window
             mask = ref.attention_mask(sq, skv, causal=causal, window=window,
                                       q_offset=q_offset, device=dev)
             row["library_ms"] = time_ms(
-                lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                lambda: sdpa(qt, kt, vt, attn_mask=mask, **gqa),
                 iters, warmup=1)
         else:
             row["library_ms"] = time_ms(
-                lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True),
+                lambda: sdpa(qt, kt, vt, is_causal=causal, **gqa),
                 iters, warmup=1)
-    flops = 4.0 * b * h * hd * visible_pairs(sq, skv, **kw)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 2.0 * b * h * (hd + dv) * visible_pairs(sq, skv, **kw)
+    nbytes = (q.numel() + k.numel() + v.numel() + b * sq * h * dv) * \
+        q.element_size()
     peak = FP32_FLOPS if dtype == torch.float32 else TENSOR_16BIT_FLOPS
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peak)
     row["fp32_ffma_bound_ms"], _ = bound(nbytes, flops, FP32_FLOPS)
@@ -891,8 +924,8 @@ def check_flash(ops, ref, case, dtype, dev, iters, *, plain=True,
         # what the tensor cores do: S = Q·Kᵀ once (twice at hd 256, one
         # per warpgroup), P·V twice (hi and lo), at the instance's hd
         qk = 2 if inst > 128 else 1
-        row["tflops_tensor_work"] = (qk * 2 + 4) * inst / (4 * hd) * \
-            row["tflops"]
+        row["tflops_tensor_work"] = (qk * 2 + 4) * inst / \
+            (2 * (hd + dv)) * row["tflops"]
     return row
 
 
@@ -1066,10 +1099,31 @@ SERVE_RUNS = {"qwen2-1.5b": ("flash_attention", 3, 4096),
               "qwen2.5-14b": ("flash_attention", 2, 4096),
               "starcoder2-7b": ("flash_attention", 2, 4096),
               # whisper's 448-token decoder context: 416 prompt + 32 new
-              "whisper-base": ("flash_attention", 3, 416)}
+              "whisper-base": ("flash_attention", 3, 416),
+              # full width at the depths that fit the card (SERVE_DEPTHS)
+              "phi3.5-moe-42b-a6.6b": ("flash_attention", 2, 4096),
+              "deepseek-v3-671b": ("flash_attention", 2, 4096),
+              "internvl2-76b": ("flash_attention", 2, 4096)}
+# arch → the layers served where the full depth does not fit one 80 GB
+# card (bf16 weights 42.1, 49.7 and 31.7 GB at these depths); every layer
+# of these uniform stacks has one shape, so the cut changes only L
+SERVE_DEPTHS = {"phi3.5-moe-42b-a6.6b": 16, "deepseek-v3-671b": 2,
+                "internvl2-76b": 16}
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_REQUESTS = 4, 4096, 32, 3
 # the reduced configs phase 4 serves on the card and on the CPU
-AGREE_ARCHS = ("qwen2-1.5b", "rwkv6-7b", "recurrentgemma-2b", "whisper-base")
+AGREE_ARCHS = ("qwen2-1.5b", "rwkv6-7b", "recurrentgemma-2b", "whisper-base",
+               "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b", "internvl2-76b")
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "deepseek-v3-671b")
+
+
+def serve_config(arch):
+    """`arch`'s config at full width, its depth cut to SERVE_DEPTHS."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch in SERVE_DEPTHS:
+        cfg = dataclasses.replace(cfg, num_layers=SERVE_DEPTHS[arch])
+    return cfg
 
 
 def prefill_launches(cfg) -> int:
@@ -1126,21 +1180,20 @@ def profile_prefill(cfg, params, prompts, dev):
 
 
 def run_serve(arch, dev, ops):
-    """`serve_requests` at the full width and depth of `arch` in bf16 with
-    random weights (SERVE_RUNS: requests, prompt length; whisper from the
-    driver's zero frames); the launch counters are set to 0 just before it
-    and read just after: the arch's prefill kernel `prefill_launches` times
-    per request, the other serving kernel never. For rwkv6-7b one more
-    prefill of the last prompts is profiled. The weights are freed before
-    returning."""
+    """`serve_requests` at the full width of `arch` (and its full depth,
+    or SERVE_DEPTHS's) in bf16 with random weights (SERVE_RUNS: requests,
+    prompt length; whisper from the driver's zero frames); the launch
+    counters are set to 0 just before it and read just after: the arch's
+    prefill kernel `prefill_launches` times per request, the other
+    serving kernel never. For rwkv6-7b one more prefill of the last
+    prompts is profiled. The weights are freed before returning."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.convert import flatten_tree
     from repro_torch.launch.serve import serve_requests
     from repro_torch.models import model as model_mod
 
-    cfg = get_config(arch)
+    cfg = serve_config(arch)
     kernel, requests, prompt_len = SERVE_RUNS[arch]
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1196,7 +1249,8 @@ def run_serve(arch, dev, ops):
           f"{launches[kernel]} launches, peak {peak_gb:.2f} GB (init "
           f"{init_peak_gb:.2f} GB)", flush=True)
     return dict(
-        arch=arch, params=n_params, init_s=init_s, total_s=total,
+        arch=arch, layers=cfg.num_layers, params=n_params, init_s=init_s,
+        total_s=total,
         requests=requests, prompt_len=prompt_len, kernel=kernel,
         launches_per_request=per_request,
         launches=launches, flash_routes=flash_routes,
@@ -1356,22 +1410,31 @@ def check_baseline_agreement(dev):
 
 def check_serve_agreement(dev):
     """The reduced qwen2-1.5b, rwkv6-7b, recurrentgemma-2b (window 16, so
-    the 80-token prompt wraps its ring) and whisper-base (random frames
-    for the prefill, the driver's zero frames for generation) in f32 from
+    the 80-token prompt wraps its ring), whisper-base (random frames for
+    the prefill, the driver's zero frames for generation), phi3.5-moe (in
+    both dispatch modes), deepseek-v3 (MLA) and internvl2-76b in f32 from
     the same weights and prompts on the card (kernels) and the CPU (plain
-    versions): greedy tokens equal; prefill logits and the KV cache / rwkv
-    state / LRU states and rings / cross k/v within 1e-4 of their scale."""
+    versions): greedy tokens equal; prefill logits and the KV / MLA latent
+    cache / rwkv state / LRU states and rings / cross k/v within 1e-4 of
+    their scale; for the MoE configs every routing choice of the prefill
+    (gate_idx, keep, read by `moe.recording_routes`) equal on both
+    devices."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.convert import flatten_tree
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as model_mod
+    from repro_torch.models import moe as moe_mod
     from repro_torch.utils.pytree import tree_map
 
     out = {}
-    for arch in AGREE_ARCHS:
+    runs = [(arch, None) for arch in AGREE_ARCHS] + [
+        ("phi3.5-moe-42b-a6.6b", "einsum")]
+    for arch, dispatch in runs:
         cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        if dispatch:
+            cfg = dataclasses.replace(cfg, moe_dispatch=dispatch)
         params = model_mod.init_params(cfg, torch.Generator().manual_seed(7),
                                        "cpu")
         card = tree_map(lambda t: t.to(dev), params)
@@ -1383,9 +1446,11 @@ def check_serve_agreement(dev):
             batch["frames"] = torch.randn(
                 (2, cfg.encoder_seq, cfg.d_model), generator=gen)
         res = {}
-        lc, cc = model_mod.prefill(cfg, params, batch, max_seq=88)
-        lg, cg = model_mod.prefill(cfg, card, tree_map(lambda t: t.to(dev),
-                                                       batch), max_seq=88)
+        with moe_mod.recording_routes() as rc:
+            lc, cc = model_mod.prefill(cfg, params, batch, max_seq=88)
+        with moe_mod.recording_routes() as rg:
+            lg, cg = model_mod.prefill(cfg, card, tree_map(
+                lambda t: t.to(dev), batch), max_seq=88)
         pairs = [("logits", lg.cpu(), lc)] + [
             (name, t.cpu(), flatten_tree(cc)[name])
             for name, t in flatten_tree(cg).items()]
@@ -1402,8 +1467,18 @@ def check_serve_agreement(dev):
             raise AssertionError(f"{arch}: greedy tokens differ between card "
                                  f"and CPU: {tg[:, 80:].tolist()} vs "
                                  f"{tc[:, 80:].tolist()}")
-        out[arch] = {"logits": res["logits"], "max_err": max(res.values()),
+        name = f"{arch} {dispatch}" if dispatch else arch
+        out[name] = {"logits": res["logits"], "max_err": max(res.values()),
                      "leaves": len(res)}
+        if cfg.num_experts:
+            assert len(rc) == len(rg) == cfg.num_layers
+            share = {what: sum(float((a[i] == b[i].cpu()).float().mean())
+                               for a, b in zip(rc, rg)) / len(rc)
+                     for i, what in enumerate(("gate_idx", "keep"))}
+            out[name]["routing_equal_share"] = share
+            if share != {"gate_idx": 1.0, "keep": 1.0}:
+                raise AssertionError(f"{name}: the prefill's routing differs "
+                                     f"between card and CPU: {share}")
     return out
 
 
@@ -3181,6 +3256,148 @@ def profile_hybrid_prefill(dev, ops):
                      for e in top[:8]])
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the MoE layer at full width
+# ---------------------------------------------------------------------------
+
+def _drop_share(route) -> float:
+    """The share of a layer's (token, k) assignments dropped, from its
+    `moe.recording_routes` entry."""
+    return 1.0 - float(route[1].float().mean())
+
+
+def profile_moe_prefill(cfg, params, prompts, dev, ops):
+    """One steady prefill of `prompts` (phi3.5-moe at its served depth)
+    under torch.profiler: wall, device kernel time and idle share; the
+    shares of the expert GEMMs (the `moe:experts` ranges), of routing,
+    dispatch and combine (the
+    `moe:route`, `moe:dispatch`, `moe:combine` ranges: router GEMM,
+    softmax, sort, one-hot, cumsum, slot scatter and the gathers), of
+    flash_attention (its launches, counted) and of lm_head (its GEMM at
+    this shape by CUDA events). The table goes to
+    chiprun_out/chip_smoke_moe_prefill_profile.txt."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import make_serving_fns
+
+    prefill_fn, _ = make_serving_fns(cfg, prompt_len=SERVE_PROMPT,
+                                     gen_tokens=SERVE_GEN)
+    prefill_fn(params, prompts)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill_fn(params, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_flash = ops.launch_counts()["flash_attention"]
+    if n_flash != cfg.num_layers:
+        raise AssertionError(f"{cfg.name} prefill: {n_flash} flash launches, "
+                             f"expected {cfg.num_layers}")
+    avg = prof.key_averages()
+    on_device = [e for e in avg if e.device_type == DeviceType.CUDA]
+    # the device time of the kernels launched inside each moe: range (its
+    # host row)
+    ranges = {e.key: getattr(e, "device_time_total", 0) for e in avg
+              if e.key.startswith("moe:")
+              and e.device_type == DeviceType.CPU}
+    kernels = [e for e in on_device if not e.key.startswith(("moe:",
+                                                             "stage:"))]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+
+    def share(pred):
+        return sum(e.self_device_time_total for e in kernels if pred(e.key))
+
+    flash_us = share(lambda k: "flash_" in k)
+    gemm_us = share(_is_gemm)
+    x = torch.randn((SERVE_BATCH * SERVE_PROMPT, cfg.d_model), device=dev,
+                    dtype=params["lm_head"].dtype)
+    lm_head_ms = time_ms(lambda: x @ params["lm_head"], 5)
+    del x
+    dispatch_us = sum(ranges.get(f"moe:{n}", 0)
+                      for n in ("route", "dispatch", "combine"))
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:20]
+    lines = [f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  "
+             f"{e.key[:110]}" for e in top]
+    lines += [f"{us / 1e3:10.3f} ms  range {key}"
+              for key, us in sorted(ranges.items())]
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_moe_prefill_profile.txt").write_text(
+        f"{card_line()}\n{cfg.name} ({cfg.num_layers} layers) prefill "
+        f"B={SERVE_BATCH} S={SERVE_PROMPT}: wall {wall:.4f} s, device "
+        f"{dev_us / 1e6:.4f} s, lm_head "
+        f"{lm_head_ms:.3f} ms (CUDA events)\n" + "\n".join(lines) + "\n")
+    return dict(wall_s=wall, device_s=dev_us / 1e6,
+                idle_share=1.0 - dev_us / 1e6 / wall,
+                expert_gemm_device_s=ranges.get("moe:experts", 0) / 1e6,
+                expert_gemm_share=ranges.get("moe:experts", 0) / dev_us,
+                dispatch_combine_device_s=dispatch_us / 1e6,
+                dispatch_combine_share=dispatch_us / dev_us,
+                ranges_s={k: v / 1e6 for k, v in ranges.items()},
+                gemm_share=gemm_us / dev_us,
+                flash_launches=n_flash, flash_device_s=flash_us / 1e6,
+                flash_share=flash_us / dev_us,
+                lm_head_event_s=lm_head_ms / 1e3,
+                lm_head_share=lm_head_ms / 1e3 / (dev_us / 1e6),
+                top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                     for e in top[:8]])
+
+
+def moe_phase(dev, ops) -> dict:
+    """For phi3.5-moe and deepseek-v3 at their served depths (bf16, full
+    width, B=4, S=4096): (b) the share of each layer's real assignments
+    the prefill drops, read in a warm-up prefill; (a) two more identical
+    prefills give bitwise-equal logits (the combine sums in a fixed
+    order); (c) for phi3.5-moe one more prefill profiled
+    (`profile_moe_prefill`). Each model is freed before the next."""
+    import torch
+
+    from repro_torch.launch.serve import serving_batch
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe as moe_mod
+
+    out = {}
+    for arch in MOE_ARCHS:
+        cfg = serve_config(arch)
+        params = model_mod.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        prompts = torch.randint(
+            0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(11),
+            dtype=torch.int32)
+
+        def prefill():
+            return model_mod.prefill(cfg, params,
+                                     serving_batch(cfg, prompts),
+                                     max_seq=SERVE_PROMPT + SERVE_GEN)[0]
+
+        with moe_mod.recording_routes() as routes:
+            prefill()
+        drops = [_drop_share(r) for r in routes]
+        del routes
+        first = prefill()
+        second = prefill()
+        if not torch.equal(first, second):
+            raise AssertionError(f"{arch}: two identical prefills differ by "
+                                 f"{float((first - second).abs().max())}")
+        del first, second
+        row = dict(layers=cfg.num_layers, repeat_bitwise=True,
+                   drop_share_per_layer=drops)
+        print(f"moe {arch}: prefills bitwise equal; dropped share per "
+              f"layer {[round(d, 4) for d in drops]}", flush=True)
+        if arch == "phi3.5-moe-42b-a6.6b":
+            row["profile"] = profile_moe_prefill(cfg, params, prompts, dev,
+                                                 ops)
+        del params
+        torch.cuda.empty_cache()
+        out[arch] = row
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3327,8 +3544,16 @@ def main() -> int:
             ("qwen2.5-14b", (4, 4096, 4096, 40, 8, 128, True, 0, 0)),
             ("whisper-base encoder", (4, 1500, 1500, 8, 8, 64, False, 0,
                                       0)),
-            ("whisper-base cross", (4, 416, 1500, 8, 8, 64, False, 0, 0)))}
-    flashes += list(flash_serving.values())
+            ("whisper-base cross", (4, 416, 1500, 8, 8, 64, False, 0, 0)),
+            ("phi3.5-moe", (4, 4096, 4096, 32, 8, 128, True, 0, 0)),
+            ("internvl2-76b", (4, 4096, 4096, 64, 8, 128, True, 0, 0)))}
+    # deepseek-v3's MLA prefill: q/k head dim 192 and v 128, all three
+    # zero-padded to the hd-256 instance; held to the plain version at the
+    # shape the path sends
+    flash_mla = check_flash(ops, ref, (4, 4096, 4096, 128, 128, 192, True,
+                                       0, 0), torch.bfloat16, dev, 5,
+                            library=True, dv=128)
+    flashes += list(flash_serving.values()) + [flash_mla]
     for row in flashes:
         print("flash_attention", json.dumps(row), flush=True)
     wkvs = [check_wkv(ops, ref, 4, 4096, 64, torch.bfloat16, -1.0, False,
@@ -3498,6 +3723,14 @@ def main() -> int:
     walls["10 hybrid"] = time.perf_counter() - t_phase
     print(f"phase 10 wall: {walls['10 hybrid']:.1f} s", flush=True)
 
+    t_phase = time.perf_counter()
+    # ---- 11. the MoE layer: repeatable prefills, drops, a profile ----------
+    moe_rows = moe_phase(dev, ops)
+    print("moe (phi3.5-moe, deepseek-v3 at their served depths):",
+          json.dumps(moe_rows), flush=True)
+    walls["11 moe"] = time.perf_counter() - t_phase
+    print(f"phase 11 wall: {walls['11 moe']:.1f} s", flush=True)
+
     # ---- output -------------------------------------------------------------
     k_main = main_sel[-1]
     assert k_main["matrix_cost"] and k_main["cand"]
@@ -3561,6 +3794,9 @@ def main() -> int:
              "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")}
              for name, row in flash_serving.items()},
+         "mla": {k: flash_mla[k] for k in (
+             "shape", "dv", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "tflops")},
          "max_abs_err": flashes[0]["max_abs_err"],
          "ms": flashes[0]["ms"], "plain_ms": flashes[0]["plain_ms"],
          "bound_ms": flashes[0]["bound_ms"],

@@ -3,10 +3,9 @@
 
 `ModelConfig` has every field of the reference's, with its defaults,
 `__post_init__`, properties, `param_count` and `reduced()`: the paper's
-ResNet-18/CIFAR (cnn) and the LLM families. The serving path runs the
-dense, ssm (RWKV6), hybrid (RecurrentGemma) and audio (Whisper) families;
-the moe and vlm families and MLA are not ported (ROADMAP queue 1 item 12),
-though their fields are here. `FLConfig` keeps the Section III protocol
+ResNet-18/CIFAR (cnn) and the LLM families. The serving path runs every
+LLM family: dense, moe (with MLA), vlm (text tokens only), ssm (RWKV6),
+hybrid (RecurrentGemma) and audio (Whisper). `FLConfig` keeps the Section III protocol
 and the network fabric (`CommsConfig`, `repro_torch.comms`), and the
 semi-async rounds' device model (`DeviceProfile`, `deadline_s`,
 `staleness_alpha`, `version_depth`; `repro_torch.fl.hetero`), and the open

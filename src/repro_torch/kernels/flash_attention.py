@@ -2,7 +2,8 @@
 `repro.kernels.flash_attention`.
 
 Causal and sliding-window masks, a query offset, and GQA (query head h
-reads kv head h // (H/K)) on q (B, Sq, H, hd) and k/v (B, Skv, K, hd);
+reads kv head h // (H/K)) on q (B, Sq, H, hd) and k/v (B, Skv, K, hd)
+(v's head dim may be below hd, as MLA's);
 the running max m, sum l and accumulator stay in f32 and the output is in
 q's dtype. `flash_attention_cuda` launches one of the two hand-written
 CUDA kernels of `csrc/flash_attention.cu` (which replaces the Pallas
@@ -16,7 +17,8 @@ band.
 The kernels are instantiated at head dims 64, 128 and 256
 (`HEAD_DIMS`); `flash_attention_padded` runs any other head dim up to 256
 on the next instance: q, k and v zero-padded on the head axis, the scale
-that of the true head dim, the padded output columns dropped. Zero
+that of the true head dim, the padded output columns dropped; a v head
+dim below hd (MLA's 192 / 128) is padded to the same instance. Zero
 columns add exact zeros to q·k and to P·v, so it is the same function.
 """
 from __future__ import annotations
@@ -52,11 +54,14 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     """The Pallas body in PyTorch: for each q block, the kv blocks in its
     band in order, with the online softmax (masked scores −1e30, masked
     p zeroed, l floored at 1e-30). scale multiplies q·k (default
-    1/√hd). → (B, Sq, H, hd) in q.dtype."""
+    1/√hd). v's head dim dv may be below hd (MLA). → (B, Sq, H, dv) in
+    q.dtype."""
     b, sq, h, hd = q.shape
-    skv, kh = k.shape[1], k.shape[2]
+    skv, kh, dv = k.shape[1], k.shape[2], v.shape[-1]
     if h % kh:
         raise ValueError(f"query heads {h} not a multiple of kv heads {kh}")
+    if dv > hd:
+        raise ValueError(f"v head dim {dv} exceeds q's {hd}")
     rep = h // kh
     bq, bkv = min(BLOCK, max(sq, 8)), min(BLOCK, max(skv, 8))
     if scale is None:
@@ -65,7 +70,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     qf = q.float().reshape(b, sq, kh, rep, hd).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3)
     vf = v.float().permute(0, 2, 1, 3)
-    out = torch.empty((b, kh, rep, sq, hd), dtype=torch.float32,
+    out = torch.empty((b, kh, rep, sq, dv), dtype=torch.float32,
                       device=q.device)
     for q0 in range(0, sq, bq):
         q1 = min(q0 + bq, sq)
@@ -73,7 +78,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         qb = qf[:, :, :, q0:q1]
         m = torch.full(qb.shape[:-1], ref.NEG, device=q.device)
         l = torch.zeros_like(m)
-        acc = torch.zeros_like(qb)
+        acc = qb.new_zeros(qb.shape[:-1] + (dv,))
         for c0 in range(0, skv, bkv):
             if not in_band(row_lo, row_lo + bq - 1, c0, c0 + bkv - 1,
                            skv=skv, causal=causal, window=window):
@@ -93,7 +98,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                 "bkrqs,bksh->bkrqh", p, vf[:, :, c0:c1])
             m = m_new
         out[:, :, :, q0:q1] = acc / l.clamp_min(1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
 
 
 def padded_head_dim(hd: int) -> int:
@@ -108,25 +113,28 @@ def padded_head_dim(hd: int) -> int:
 
 def flash_attention_padded(fn, q, k, v, **kw):
     """`fn(q, k, v, scale=…, **kw)` on the head dim's kernel instance:
-    q, k and v zero-padded on the head axis to `padded_head_dim(hd)`,
-    the scale 1/√hd of the true head dim, the padded output columns
-    dropped. Without padding it is `fn` with the default scale."""
-    hd = q.shape[-1]
+    q, k and v (whose head dim dv may be below q's, as MLA's) zero-padded
+    on the head axis to `padded_head_dim(hd)`, the scale 1/√hd of the
+    true head dim, the output's columns past dv dropped. Without padding
+    it is `fn` with the default scale."""
+    hd, dv = q.shape[-1], v.shape[-1]
     inst = padded_head_dim(hd)
     scale = 1.0 / math.sqrt(hd)
-    if inst == hd:
+    if inst == hd == dv:
         return fn(q, k, v, scale=scale, **kw)
-    pad = (0, inst - hd)
-    out = fn(torch.nn.functional.pad(q, pad).contiguous(),
-             torch.nn.functional.pad(k, pad).contiguous(),
-             torch.nn.functional.pad(v, pad).contiguous(), scale=scale, **kw)
-    return out[..., :hd].contiguous()
+
+    def pad(t):
+        n = inst - t.shape[-1]
+        return torch.nn.functional.pad(t, (0, n)).contiguous() if n else t
+
+    out = fn(pad(q), pad(k), pad(v), scale=scale, **kw)
+    return out[..., :dv].contiguous()
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          q_offset: int = 0):
-    """The CUDA kernel of q's dtype (`ROUTES`). q (B, Sq, H, hd), k/v
-    (B, Skv, K, hd): contiguous CUDA tensors of one float dtype (f32, bf16
+    """The CUDA kernel of q's dtype (`ROUTES`). q (B, Sq, H, hd), k
+    (B, Skv, K, hd), v (B, Skv, K, dv) with dv ≤ hd: contiguous CUDA tensors of one float dtype (f32, bf16
     or f16) on one device, hd ≤ 256 (other than 64, 128 and 256 through
     `flash_attention_padded`), H a multiple of K. A bf16/f16 q, k or v
     whose start is not 16-byte aligned (TMA's requirement) is copied
@@ -141,10 +149,13 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                              f"{tuple(t.shape)}")
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
-    if tuple(k.shape) != (b, skv, kh, hd) or v.shape != k.shape:
-        raise ValueError(f"k/v must be (B, Skv, K, hd) = "
+    dv = v.shape[-1]
+    if tuple(k.shape) != (b, skv, kh, hd) or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"k/v must be (B, Skv, K, hd|dv) = "
                          f"{(b, skv, kh, hd)}, got {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
+    if dv > hd:
+        raise ValueError(f"v head dim {dv} exceeds q's {hd}")
     if skv < 1:
         raise ValueError("k/v must hold at least one position")
     padded_head_dim(hd)
@@ -153,7 +164,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if q.numel() == 0:
-        return torch.empty_like(q)
+        return q.new_empty((b, sq, h, dv))
     return flash_attention_padded(_launch, q, k, v, causal=causal,
                                   window=window, q_offset=q_offset)
 

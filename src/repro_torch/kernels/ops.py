@@ -144,8 +144,11 @@ def mask_evolve_leaves(leaves, grows, keeps, *, impl: str | None = None):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, impl: str | None = None):
-    """Blocked online-softmax attention: q (B, Sq, H, hd), k/v
-    (B, Skv, K, hd), GQA by h // (H/K) → (B, Sq, H, hd) in q.dtype."""
+    """Blocked online-softmax attention: q/k (B, Sq|Skv, H|K, hd), v
+    (B, Skv, K, dv) with dv ≤ hd, GQA by h // (H/K) → (B, Sq, H, dv) in
+    q.dtype. A dv below hd (MLA: 192 / 128) runs the kernel on v
+    zero-padded to the instance's head dim (zero columns of v add exact
+    zeros to P·v), the plain version on v as it is."""
     if _route(q, impl) == "cuda":
         return _fa.flash_attention_cuda(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,

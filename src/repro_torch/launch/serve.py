@@ -1,12 +1,14 @@
-"""Batched serving — prefill + greedy decode for the dense, ssm, hybrid
-and audio LLM families (reference `repro.launch.serve`).
+"""Batched serving — prefill + greedy decode for every LLM family: dense,
+moe, vlm, ssm, hybrid and audio (reference `repro.launch.serve`).
 
 `generate` prefills a batch of prompts and decodes one token at a time
-with the family's cache (the KV cache of the dense family, the WKV state
-of rwkv6, the LRU states and window rings of recurrentgemma, whisper's
-decoder self-cache and cross k/v). The audio family's frames are the
-reference driver's stub: zeros of shape (B, encoder_seq, d_model) in the
-model dtype. `make_serving_fns` splits the two phases so `serve_requests`
+with the family's cache (the KV cache of the dense, moe and vlm
+families, deepseek's MLA latent cache, the WKV state of rwkv6, the LRU
+states and window rings of recurrentgemma, whisper's decoder self-cache
+and cross k/v). The vlm family serves text tokens only, as the
+reference's driver does. The audio family's frames are the reference
+driver's stub: zeros of shape (B, encoder_seq, d_model) in the model
+dtype. `make_serving_fns` splits the two phases so `serve_requests`
 can time each per request with a first/steady split (`StageTimes`):
 request 0 pays the kernels' build and the libraries' warm-up, later
 requests measure the steady state.
@@ -44,9 +46,10 @@ PREFILL_BACKEND = "flash"
 
 
 def serving_batch(cfg, prompts) -> dict:
-    """The prefill's batch for prompts (B, S): the tokens, and for the
-    audio family zero frames (B, encoder_seq, d_model) in cfg.dtype on the
-    prompts' device, as the reference's driver feeds them."""
+    """The prefill's batch for prompts (B, S): the tokens (alone for the
+    vlm family too: no image prefix), and for the audio family zero frames
+    (B, encoder_seq, d_model) in cfg.dtype on the prompts' device, as the
+    reference's driver feeds them."""
     batch = {"tokens": prompts}
     if cfg.family == "audio":
         batch["frames"] = torch.zeros(

@@ -1,4 +1,4 @@
-"""GQA attention: full-sequence, cross and KV-cache decode paths
+"""GQA and MLA attention: full-sequence, cross and KV-cache decode paths
 (reference `repro.models.attention`).
 
 Backends of `attend`:
@@ -12,9 +12,11 @@ Backends of `attend`:
   PyTorch version on the CPU. The serving path prefills through it.
 
 `attention_decode` writes into a KV cache in place, at slot pos, or at
-pos % window in a sliding window's ring. MLA is not ported (ROADMAP
-queue 1 item 12). Weights are (d_in, d_out), applied as x @ W. All
-softmax math in float32.
+pos % window in a sliding window's ring. MLA (deepseek): the low-rank
+q and kv projections (`init_mla`, `mla_qkv_full`, `mla_layer`), whose
+q/k head dim (nope + rope) exceeds v's, and the absorbed-weight decode
+over the latent cache (`init_mla_cache`, `mla_decode`). Weights are
+(d_in, d_out), applied as x @ W. All softmax math in float32.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import NEG, attention_mask
-from repro_torch.models.layers import apply_rope, dense_init, torch_dtype
+from repro_torch.models.layers import (apply_rope, dense_init, rms_norm,
+                                       torch_dtype)
 
 CHUNK_Q = 1024
 CHUNK_KV = 1024
@@ -49,6 +52,35 @@ def init_attention(generator, cfg, device, *, depth_scale: float = 1.0,
             p[name] = torch.zeros(tuple(lead) + (n,), dtype=dt,
                                   device=device)
     return p
+
+
+def init_mla(generator, cfg, device, *, depth_scale: float = 1.0, lead=()):
+    """MLA weights: wq_a (D, q_rank), q_norm, wq_b (q_rank, H·(nope+rope)),
+    wkv_a (D, kv_rank + rope), kv_norm, wkv_b (kv_rank, H·(nope+v)), wo
+    (H·v, D); a leading `lead` shape stacks layers. The matrices are drawn
+    one layer's slice at a time (`dense_init(sliced=True)`)."""
+    D, H = cfg.d_model, cfg.num_heads
+    nope, rope_d, v_d = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                         cfg.v_head_dim)
+    dt = torch_dtype(cfg.dtype)
+    kw = dict(lead=lead, sliced=True)
+    lead = tuple(lead)
+    return {
+        "wq_a": dense_init(generator, D, cfg.q_lora_rank, cfg.dtype, device,
+                           **kw),
+        "q_norm": torch.zeros(lead + (cfg.q_lora_rank,), dtype=dt,
+                              device=device),
+        "wq_b": dense_init(generator, cfg.q_lora_rank, H * (nope + rope_d),
+                           cfg.dtype, device, **kw),
+        "wkv_a": dense_init(generator, D, cfg.kv_lora_rank + rope_d,
+                            cfg.dtype, device, **kw),
+        "kv_norm": torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dt,
+                               device=device),
+        "wkv_b": dense_init(generator, cfg.kv_lora_rank, H * (nope + v_d),
+                            cfg.dtype, device, **kw),
+        "wo": dense_init(generator, H * v_d, D, cfg.dtype, device,
+                         scale=depth_scale, **kw),
+    }
 
 
 def _group_q(q, num_kv: int):
@@ -228,3 +260,99 @@ def attention_decode(p, x, cache, pos: int, cfg, *, window: int = 0):
     probs = torch.softmax(scores, dim=-1).to(cv.dtype)
     out = torch.einsum("bkrs,bskv->bkrv", probs, cv).reshape(b, 1, H * hd)
     return out @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek): full sequence and the absorbed-weight decode
+# ---------------------------------------------------------------------------
+
+def mla_qkv_full(p, x, positions, cfg):
+    """x (B, S, D) → q, k (B, S, H, nope + rope), v (B, S, H, v_d), the
+    normed latent c_kv (B, S, kv_rank) and the rotated shared rope key
+    (B, S, rope) (reference `_mla_qkv_full`). k's rope half is the one
+    shared key, broadcast over the heads; q and k are contiguous."""
+    b, s, _ = x.shape
+    H = cfg.num_heads
+    nope, rope_d, v_d = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                         cfg.v_head_dim)
+    q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = (q @ p["wq_b"]).reshape(b, s, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv_a = x @ p["wkv_a"]
+    c_kv = rms_norm(kv_a[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., cfg.kv_lora_rank:][:, :, None, :],
+                        positions, cfg.rope_theta)
+    kv = (c_kv @ p["wkv_b"]).reshape(b, s, H, nope + v_d)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([k_nope, k_rope.expand(b, s, H, rope_d)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    return q, k, v, c_kv, k_rope[:, :, 0, :]
+
+
+def mla_layer(p, x, positions, cfg, *, backend: str = "auto"):
+    """Causal MLA self-attention over x (B, S, D) → (B, S, D); the
+    attention's v head dim is v_d, below q/k's nope + rope."""
+    q, k, v, _, _ = mla_qkv_full(p, x, positions, cfg)
+    out = attend(q, k, v, causal=True, backend=backend)
+    b, s = x.shape[:2]
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def init_mla_cache(cfg, batch: int, max_seq: int, device, lead=()):
+    """The compressed MLA cache: zeroed latent c_kv (*lead, B, max_seq,
+    kv_rank) and shared rope key (*lead, B, max_seq, rope) in cfg.dtype."""
+    dt = torch_dtype(cfg.dtype)
+    lead = tuple(lead)
+    return {"c_kv": torch.zeros(lead + (batch, max_seq, cfg.kv_lora_rank),
+                                dtype=dt, device=device),
+            "k_rope": torch.zeros(lead + (batch, max_seq,
+                                          cfg.qk_rope_head_dim),
+                                  dtype=dt, device=device)}
+
+
+def mla_decode(p, x, cache, pos: int, cfg):
+    """Absorbed-weight MLA decode of one token x (B, 1, D) at position pos
+    (reference `mla_decode`): the query is taken into the latent space
+    through wkv_b's k half, scores against the cached c_kv and rope keys
+    run in f32 (positions past pos masked to NEG), the context comes back
+    through wkv_b's v half. This token's c_kv and rope key are written
+    into the cache IN PLACE at slot pos (the last slot once pos passes the
+    end). → (out (B, 1, D), the same cache dict)."""
+    b = x.shape[0]
+    H = cfg.num_heads
+    nope, rope_d, v_d = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                         cfg.v_head_dim)
+    L = cfg.kv_lora_rank
+    posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+
+    q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = (q @ p["wq_b"]).reshape(b, 1, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, posb, cfg.rope_theta)[:, 0]     # (b, H, rope)
+
+    kv_a = x @ p["wkv_a"]
+    c_kv_new = rms_norm(kv_a[..., :L], p["kv_norm"], cfg.norm_eps)
+    k_rope_new = apply_rope(kv_a[..., L:][:, :, None, :], posb,
+                            cfg.rope_theta)[:, :, 0, :]
+
+    ckv, krope = cache["c_kv"], cache["k_rope"]
+    slot = min(pos, ckv.shape[1] - 1)
+    ckv[:, slot] = c_kv_new[:, 0].to(ckv.dtype)
+    krope[:, slot] = k_rope_new[:, 0].to(krope.dtype)
+
+    wkv_b = p["wkv_b"].reshape(L, H, nope + v_d)
+    wk, wv = wkv_b[..., :nope], wkv_b[..., nope:]
+    q_lat = torch.einsum("bhn,lhn->bhl", q_nope[:, 0], wk)       # (b, H, L)
+    scale = 1.0 / math.sqrt(nope + rope_d)
+    scores = (torch.einsum("bhl,bsl->bhs", q_lat.float(), ckv.float())
+              + torch.einsum("bhr,bsr->bhs", q_rope.float(),
+                             krope.float())) * scale
+    valid = torch.arange(ckv.shape[1], device=x.device) <= pos
+    scores = torch.where(valid, scores, NEG)
+    probs = torch.softmax(scores, dim=-1)
+    ctx_lat = torch.einsum("bhs,bsl->bhl", probs.to(ckv.dtype), ckv)
+    ctx = torch.einsum("bhl,lhv->bhv", ctx_lat, wv)             # (b, H, v_d)
+    out = (ctx.reshape(b, H * v_d) @ p["wo"])[:, None, :]
+    return out, cache

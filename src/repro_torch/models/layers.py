@@ -1,5 +1,5 @@
 """Shared primitive layers (reference `repro.models.layers`): the CNN's
-GroupNorm and losses, and the dense/ssm LLM layers."""
+GroupNorm and losses, and the LLM layers."""
 from __future__ import annotations
 
 import functools
@@ -64,12 +64,33 @@ def normal(generator, shape, std: float, dtype, device):
     return x.mul_(std).to(torch_dtype(dtype))
 
 
+def normal_sliced(generator, shape, std: float, dtype, device, *,
+                  lead: int):
+    """N(0, std²) draws from `generator` into a tensor of `dtype`, one
+    slice of the first `lead` axes at a time (each drawn in f32, then
+    cast): a stacked leaf never has an f32 copy of its whole, only of one
+    slice. The draws differ from `normal`'s over the same shape."""
+    shape = tuple(shape)
+    out = torch.empty(shape, dtype=torch_dtype(dtype), device=device)
+    for piece in out.view((-1,) + shape[lead:]):
+        piece.copy_(torch.randn(shape[lead:], generator=generator,
+                                device=device,
+                                dtype=torch.float32).mul_(std))
+    return out
+
+
 def dense_init(generator, d_in: int, d_out: int, dtype, device, *,
-               scale: float = 1.0, lead=()):
+               scale: float = 1.0, lead=(), sliced: bool = False):
     """A (*lead, d_in, d_out) weight: std 0.02 (d_in^-½ for d_in ≤ 64),
-    times `scale` (reference `dense_init`; `lead` stacks layers)."""
+    times `scale` (reference `dense_init`; `lead` stacks layers). With
+    `sliced` it is drawn one (d_in, d_out) slice at a time
+    (`normal_sliced`); the moe, MLA and vision leaves are."""
     std = scale * (0.02 if d_in > 64 else d_in ** -0.5)
-    return normal(generator, tuple(lead) + (d_in, d_out), std, dtype, device)
+    shape = tuple(lead) + (d_in, d_out)
+    if sliced:
+        return normal_sliced(generator, shape, std, dtype, device,
+                             lead=len(lead))
+    return normal(generator, shape, std, dtype, device)
 
 
 def init_embed(generator, vocab: int, d_model: int, dtype, device):

@@ -4,9 +4,10 @@ serving branches of the LLM families, and the analytic parameter count.
 batch dicts: cnn {"images": (B, H, W, C), "labels": (B,) int}; the LLM
 families {"tokens": (B, S) int}, and for the audio family also
 {"frames": (B, encoder_seq, d_model)}. The cnn trains (forward, losses);
-the dense, ssm, hybrid and audio families serve (init_cache, prefill,
-decode_step). The moe and vlm families, and LLM training, are not ported
-(ROADMAP queue 1 item 12). `count_params` covers every family.
+every LLM family serves (init_cache, prefill, decode_step): dense, moe,
+vlm (text tokens only, as the reference's `prefill`), ssm, hybrid and
+audio. LLM training is not ported (ROADMAP queue 1 item 12).
+`count_params` covers every family.
 """
 from __future__ import annotations
 
@@ -19,24 +20,16 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.layers import cross_entropy_loss, per_example_nll
 
-SERVING_FAMILIES = ("dense", "ssm", "hybrid", "audio")
-
-
-def _unported(cfg):
-    return NotImplementedError(
-        f"family {cfg.family!r} is not ported (ROADMAP queue 1 item 12)")
-
-
 def _check_family(cfg):
     if cfg.family != "cnn":
-        raise _unported(cfg)
+        raise NotImplementedError(
+            f"training of the {cfg.family!r} family is not ported "
+            "(ROADMAP queue 1 item 12)")
 
 
 def _check_serving(cfg):
     if cfg.family == "cnn":
         raise ValueError("cnn has no decode step")
-    if cfg.family not in SERVING_FAMILIES:
-        raise _unported(cfg)
 
 
 def init_params(cfg, generator: torch.Generator, device) -> dict:
@@ -88,12 +81,12 @@ def accuracy(cfg, params, batch):
 
 
 # ---------------------------------------------------------------------------
-# serving (dense, ssm, hybrid, audio)
+# serving (dense, moe, vlm, ssm, hybrid, audio)
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_seq: int, device):
-    """Decode state: the stacked KV cache of length max_seq (dense), the
-    O(1) recurrent state (ssm), the LRU states and window rings (hybrid),
+    """Decode state: the stacked KV cache of length max_seq (dense, moe,
+    vlm; MLA's latent cache for deepseek), the O(1) recurrent state (ssm), the LRU states and window rings (hybrid),
     or the decoder's self-cache and cross-k/v buffers (audio)."""
     _check_serving(cfg)
     if cfg.family == "ssm":

@@ -1,12 +1,18 @@
-"""Decoder-only transformer, dense branch (reference
-`repro.models.transformer`): init, the KV cache, one-token decode and the
-prefill that fills the cache.
+"""Decoder-only transformer — dense, MoE and MLA layers, and the vlm
+family's text path (reference `repro.models.transformer`): init, the KV
+(or MLA latent) cache, one-token decode and the prefill that fills the
+cache.
 
 Layers are stacked as in the reference — every leaf of
 `params["layers"]` carries a leading L axis — and a Python loop walks
-them (the reference scans). MoE, MLA and the vision projector are not
-ported (ROADMAP queue 1 item 12); the reference's `constrain_act` is the
-identity without a mesh and is dropped.
+them (the reference scans). A layer's attention is GQA or, with
+`cfg.use_mla`, MLA; its FFN the gated MLP or, with `cfg.num_experts`,
+`moe.moe_layer` (its aux dict discarded, as the reference's serving
+does). The vlm family's `vision_proj` is initialised and carried; only
+`decoder_forward` with prefix embeddings reads it in the reference, and
+that is the LLM training slice (ROADMAP queue 1 item 12). The
+reference's `constrain_act` is the identity without a mesh and is
+dropped.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import math
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_rope, dense_init, embed_lookup,
                                        init_embed, mlp, rms_norm,
                                        torch_dtype)
@@ -27,32 +34,43 @@ def layer_at(layers: dict, i: int) -> dict:
 
 
 def init_layers(generator, cfg, device) -> dict:
-    """All L decoder layers, stacked: ln1/ln2, attention, gated MLP."""
+    """All L decoder layers, stacked: ln1/ln2, attention (GQA or MLA) and
+    the FFN (gated MLP or MoE)."""
     D, L = cfg.d_model, cfg.num_layers
     dt = torch_dtype(cfg.dtype)
     depth_scale = 1.0 / math.sqrt(2 * L)
     lead = (L,)
-    return {
+    layers = {
         "ln1": torch.zeros((L, D), dtype=dt, device=device),
         "ln2": torch.zeros((L, D), dtype=dt, device=device),
-        "attn": attn_mod.init_attention(generator, cfg, device,
-                                        depth_scale=depth_scale, lead=lead),
-        "mlp": {
+    }
+    if cfg.use_mla:
+        layers["attn"] = attn_mod.init_mla(generator, cfg, device,
+                                           depth_scale=depth_scale,
+                                           lead=lead)
+    else:
+        layers["attn"] = attn_mod.init_attention(generator, cfg, device,
+                                                 depth_scale=depth_scale,
+                                                 lead=lead)
+    if cfg.num_experts:
+        layers["moe"] = moe_mod.init_moe(generator, cfg, device,
+                                         depth_scale=depth_scale, lead=lead)
+    else:
+        layers["mlp"] = {
             "wi": dense_init(generator, D, cfg.d_ff, cfg.dtype, device,
                              lead=lead),
             "wg": dense_init(generator, D, cfg.d_ff, cfg.dtype, device,
                              lead=lead),
             "wo": dense_init(generator, cfg.d_ff, D, cfg.dtype, device,
                              scale=depth_scale, lead=lead),
-        },
-    }
+        }
+    return layers
 
 
 def init_decoder(generator, cfg, device) -> dict:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"decoder family {cfg.family!r} is not "
-                                  "ported (ROADMAP queue 1 item 12)")
-    return {
+    """The dense, moe and vlm families' parameters (with `vision_proj` for
+    a vision stub frontend)."""
+    params = {
         "embed": init_embed(generator, cfg.padded_vocab, cfg.d_model,
                             cfg.dtype, device),
         "layers": init_layers(generator, cfg, device),
@@ -61,6 +79,13 @@ def init_decoder(generator, cfg, device) -> dict:
         "lm_head": dense_init(generator, cfg.d_model, cfg.padded_vocab,
                               cfg.dtype, device),
     }
+    if cfg.frontend == "vision_stub":
+        # the projector from the stub's patch embeddings into the residual
+        # stream (the ViT itself is stubbed in the reference)
+        params["vision_proj"] = dense_init(generator, cfg.d_model,
+                                           cfg.d_model, cfg.dtype, device,
+                                           sliced=True)
+    return params
 
 
 def _head(params, x, cfg):
@@ -68,8 +93,20 @@ def _head(params, x, cfg):
     return x @ params["lm_head"]
 
 
+def _ffn(layer, x, cfg):
+    """The layer's FFN on its normed input: the gated MLP or the MoE."""
+    if cfg.num_experts:
+        return moe_mod.moe_layer(layer["moe"], x, cfg)[0]
+    return mlp(layer["mlp"], x, act=cfg.act)
+
+
 def init_decoder_cache(cfg, batch: int, max_seq: int, device):
-    """Stacked (L, B, max_seq, K, hd) k and v buffers."""
+    """Stacked (L, B, max_seq, K, hd) k and v buffers, or with MLA the
+    latent cache: c_kv (L, B, max_seq, kv_rank) and k_rope (L, B,
+    max_seq, rope)."""
+    if cfg.use_mla:
+        return attn_mod.init_mla_cache(cfg, batch, max_seq, device,
+                                       lead=(cfg.num_layers,))
     return attn_mod.init_kv_cache(cfg, batch, max_seq, device,
                                   lead=(cfg.num_layers,))
 
@@ -81,18 +118,21 @@ def decoder_decode_step(params, cache, tokens, pos: int, cfg):
     for i in range(cfg.num_layers):
         layer = layer_at(params["layers"], i)
         h = rms_norm(x, layer["ln1"], cfg.norm_eps)
-        h, _ = attn_mod.attention_decode(
-            layer["attn"], h, {"k": cache["k"][i], "v": cache["v"][i]}, pos,
-            cfg)
+        cache_l = {name: buf[i] for name, buf in cache.items()}
+        if cfg.use_mla:
+            h, _ = attn_mod.mla_decode(layer["attn"], h, cache_l, pos, cfg)
+        else:
+            h, _ = attn_mod.attention_decode(layer["attn"], h, cache_l, pos,
+                                             cfg)
         x = x + h
-        x = x + mlp(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps),
-                    act=cfg.act)
+        x = x + _ffn(layer, rms_norm(x, layer["ln2"], cfg.norm_eps), cfg)
     return _head(params, x, cfg), cache
 
 
 def decoder_prefill(params, tokens, cfg, *, max_seq: int, backend="auto"):
-    """Full prefill of tokens (B, S). → (logits (B, S, V), cache with k/v
-    (L, B, max_seq, K, hd) filled up to S, zeros after)."""
+    """Full prefill of tokens (B, S). → (logits (B, S, V), the cache of
+    `init_decoder_cache` filled up to S, zeros after: k/v, or MLA's
+    c_kv and k_rope)."""
     b, s = tokens.shape
     x = embed_lookup(params["embed"], tokens)
     positions = torch.arange(s, device=tokens.device)[None]
@@ -100,13 +140,19 @@ def decoder_prefill(params, tokens, cfg, *, max_seq: int, backend="auto"):
     for i in range(cfg.num_layers):
         layer = layer_at(params["layers"], i)
         h = rms_norm(x, layer["ln1"], cfg.norm_eps)
-        q, k, v = attn_mod.qkv_proj(layer["attn"], h, cfg)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if cfg.use_mla:
+            q, k, v, c_kv, k_rope = attn_mod.mla_qkv_full(
+                layer["attn"], h, positions, cfg)
+            cache["c_kv"][i, :, :s] = c_kv
+            cache["k_rope"][i, :, :s] = k_rope
+        else:
+            q, k, v = attn_mod.qkv_proj(layer["attn"], h, cfg)
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
         o = attn_mod.attend(q, k, v, causal=True, backend=backend)
+        del q, k, v         # freed before the FFN's (MoE) buffers
         x = x + o.reshape(b, s, -1) @ layer["attn"]["wo"]
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
-        x = x + mlp(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps),
-                    act=cfg.act)
+        x = x + _ffn(layer, rms_norm(x, layer["ln2"], cfg.norm_eps), cfg)
     return _head(params, x, cfg), cache

@@ -599,6 +599,8 @@ def test_serving_kernels_count_launches_and_refuse_bad_input(cuda):
     wide = torch.randn(1, 70, 4, 320, device=cuda)
     with pytest.raises(ValueError):
         flash_attention_cuda(wide, wide, wide)           # head_dim > 256
+    with pytest.raises(ValueError, match="v head dim"):
+        flash_attention_cuda(q, q, torch.cat([q, q], -1))  # dv > hd
     with pytest.raises(ValueError):
         wkv_chunked_cuda(r, r, r, r.half(), torch.zeros(2, 64, device=cuda))
     with pytest.raises(ValueError):
@@ -1150,3 +1152,72 @@ def test_lru_doubling_scan_on_card_matches_sequential_recurrence(cuda):
         h = a[:, t].double() * h + b[:, t].double()
         scale = max(1.0, float(h.abs().max()))
         assert float((got[:, t] - h).abs().max()) <= 1e-5 * scale, t
+
+
+# (B, Sq, Skv, H, K, dqk, dv, causal): MLA's reduced 48/32 (the hd-64
+# instance), and deepseek-v3's 192/128 (the hd-256 instance)
+FLASH_DV_CASES = [(2, 300, 300, 4, 4, 48, 32, True),
+                  (1, 200, 330, 4, 2, 48, 32, False),
+                  (1, 520, 520, 8, 8, 192, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_DV_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_dv_below_dqk_matches_plain(cuda, case, dtype):
+    """v's head dim below q/k's (MLA): the kernel on q, k and v
+    zero-padded to the instance's head dim, cut back to dv, against the plain version taking dv directly:
+    f32 within 1e-5 of max(1, max|out|), bf16 within one ulp; one launch
+    of the dtype's route a call."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    b, sq, skv, h, kh, dqk, dv, causal = case
+    g = torch.Generator(device=cuda).manual_seed(sum(case))
+    q = torch.randn((b, sq, h, dqk), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, skv, kh, dqk), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, skv, kh, dv), generator=g, device=cuda).to(dtype)
+    routes = dict(fa.flash_attention_cuda.route_launches)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    routes = {r: n - routes[r]
+              for r, n in fa.flash_attention_cuda.route_launches.items()}
+    assert routes[fa.ROUTES[dtype]] == 1 and sum(routes.values()) == 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert got.shape == want.shape == (b, sq, h, dv) and got.dtype == dtype
+    if dtype == torch.float32:
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+    else:
+        assert ref.within_ulps(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"])
+def test_moe_prefill_on_card_agrees_with_cpu_and_repeats(cuda, arch):
+    """Reduced f32 phi3.5-moe and deepseek-v3 (MLA), the same weights on
+    both devices: the card's prefill (flash once per layer) gives logits
+    within 1e-4 of the CPU's scale, bitwise the same logits when run
+    again, and the CPU's greedy tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    params = model.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    card = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 60), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(4))
+    want, _ = model.prefill(cfg, params, {"tokens": toks}, max_seq=66)
+    ops.reset_launch_counts()
+    got, _ = model.prefill(cfg, card, {"tokens": toks.to(cuda)}, max_seq=66)
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    again, _ = model.prefill(cfg, card, {"tokens": toks.to(cuda)},
+                             max_seq=66)
+    assert torch.equal(got, again)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+    assert torch.equal(generate(cfg, card, toks.to(cuda), gen_tokens=6).cpu(),
+                       generate(cfg, params, toks, gen_tokens=6))

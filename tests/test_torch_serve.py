@@ -610,10 +610,12 @@ def test_llm_tree_round_trips_without_transpose():
 
 def test_init_params_matches_reference_layout():
     """The port's own random init has the reference's tree, shapes and
-    dtypes (bf16) for both families."""
-    for arch in ARCHS:
-        want = convert.flatten_tree(ref_model.init_params(
-            ref_get_config(arch).reduced(), jax.random.PRNGKey(0)))
+    dtypes (bf16) for the dense, ssm, moe (with MLA) and vlm families."""
+    for arch in ARCHS + ["phi3.5-moe-42b-a6.6b", "deepseek-v3-671b",
+                         "internvl2-76b"]:
+        rcfg = ref_get_config(arch).reduced()
+        want = convert.flatten_tree(jax.jit(
+            lambda k: ref_model.init_params(rcfg, k))(jax.random.PRNGKey(0)))
         got = convert.flatten_tree(model.init_params(
             get_config(arch).reduced(), torch.Generator().manual_seed(0),
             "cpu"))
@@ -624,16 +626,19 @@ def test_init_params_matches_reference_layout():
 
 
 def test_unported_families_and_backends_raise():
-    """moe and vlm are not ported; nor is rwkv's "chunked" prefill. The
-    attention backend "chunked" is (test_chunked_attention_matches_
-    reference); an unknown backend raises."""
-    for family in ("moe", "vlm"):
-        cfg = ModelConfig(name="m", family=family, num_layers=1, d_model=8,
-                          num_heads=2, d_ff=16, vocab_size=32)
+    """Every LLM family serves since the moe and vlm families were ported
+    (their caches are made), but none trains: `model.forward` on an LLM
+    family raises (queue 1 item 12); nor is rwkv's "chunked" prefill
+    ported. The attention
+    backend "chunked" is (test_chunked_attention_matches_reference); an
+    unknown backend raises."""
+    for arch in ("qwen2-1.5b", "phi3.5-moe-42b-a6.6b", "internvl2-76b"):
+        cfg = get_config(arch).reduced()
+        assert model.init_cache(cfg, 1, 4, "cpu")["k"].shape[2] == 4
         with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            model.init_params(cfg, torch.Generator(), "cpu")
+            model.forward(cfg, {}, {"tokens": torch.zeros(1, 2)})
         with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            model.prefill(cfg, {}, {"tokens": torch.zeros(1, 2)}, max_seq=2)
+            model.loss_fn(cfg, {}, {"tokens": torch.zeros(1, 2)})
     q = torch.zeros(1, 4, 2, 8)
     assert attention.attend(q, q, q, backend="chunked").shape == q.shape
     with pytest.raises(ValueError, match="unknown attention backend"):
