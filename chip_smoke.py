@@ -290,13 +290,39 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             share, the expert GEMMs' share, route + dispatch + combine
             (the `moe:` ranges), flash's and lm_head's (CUDA events)
             (chiprun_out/chip_smoke_moe_prefill_profile.txt).
+12. llm     federated LLM training. (a) pfeddst (select_topk), pfeddst_
+            random (raw_gram), dfedpgp (gossip_mix, one call a column
+            block of the packed extractor) and dispfl (mask_evolve, one
+            call over every leaf, in place) through `run_experiment` over
+            qwen2-1.5b at full width and all 28 layers in bf16: M = 4,
+            k = 2, batch 8 × 64 tokens of `synth_tokens` (2 domains),
+            probe 4, lr 0.05, 2 rounds, eval every round; the launch
+            counters set to 0 just before each run and read just after;
+            each kernel's first call on the path held to its plain
+            version on copies of its inputs (`KernelCheck`: the selection
+            mask exact, raw_gram within 1e-3 of its scale, gossip_mix and
+            mask_evolve bitwise); each run's steady round wall, peak
+            memory, finite losses and launches. (b) `launch.train`'s main
+            at (a)'s settings (its own FLConfig defaults otherwise): its
+            final-accuracy line. (c) one `make_train_pair_step(...,
+            remat=True)` step for rwkv6-7b, recurrentgemma-2b,
+            whisper-base, phi3.5-moe and internvl2-76b (with 256 prefix
+            rows through vision_proj) at full width and TRAIN_DEPTHS,
+            its peak beside `pair_step_gb`'s reckoning. (d) every
+            family's reduced f32 loss, metrics and gradients, card
+            against CPU. Then the four kernels at (a)'s shapes against
+            their plain versions, timed beside the library call
+            (select_topk's row statistics and raw_gram, sums over P =
+            2.3e8, held within 1e-3 and reported against float64).
 
 Output: each phase's wall, the card's name and power limit (nvidia-smi),
 one `kernels` JSON line (`launches` from phase 3's run of the kernel's
 path, `launches_fabric` from each phase-6 run, select_topk's
 `launches_async` from phase 7 (b); `launches_openworld` of select_topk,
 gossip_mix and mask_evolve from each phase-8 run; `launches_driver` of
-the same three from each phase-9 run; flash's `hd256`, `mla` and
+the same three from each phase-9 run; `launches_llm` and `llm_shape`
+of select_topk, raw_gram, gossip_mix and mask_evolve from phase 12;
+flash's `hd256`, `mla` and
 `serving_shapes` rows from phase 2, and `launches_serve`, each serving
 run's launches, from phase 3; mask_evolve's count calls,
 each of 3–5 kernel launches, and its row also gives the leaves those
@@ -308,6 +334,7 @@ the main path sends, device time included), the round walls, and last
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -494,10 +521,14 @@ def select_case(m, p, k, *, matrix_cost, cand, seed, dev):
     return x, last, s_l, t, cost, mask
 
 
-def check_select(ops, ref, case, k, iters, *, graph=False):
+def check_select(ops, ref, case, k, iters, *, graph=False, stats_rtol=1e-4,
+                 f64=False):
     """select_topk against the plain version; times per call and, with
     `graph`, on the device alone (CUDA-graph replay) and on the host alone
-    (the calls issued without waiting)."""
+    (the calls issued without waiting). stats_rtol: the row statistics'
+    tolerance (sums of M cosines, each a ratio of P-term f32 sums: 1e-4
+    at the rounds' P; the LLM headers' P = 2.3e8 states its own). f64:
+    also report both routes' statistics against float64's."""
     import torch
 
     x, last, s_l, t, cost, mask = case
@@ -522,7 +553,17 @@ def check_select(ops, ref, case, k, iters, *, graph=False):
                 "beyond near-ties")
         flips = int(near.sum())
     torch.testing.assert_close(v, pv, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(s, ps, rtol=1e-4, atol=1e-6 * m)
+    stats_f64 = None
+    if f64:
+        xd = x.double()
+        gram = xd @ xd.T
+        inv = 1.0 / (gram.diagonal().sqrt() + 1e-12)
+        cos = (gram * inv[:, None] * inv[None, :]).clamp(-1.0, 1.0)
+        exact = torch.stack([cos.sum(1), cos.diagonal()], 1)
+        del xd, gram
+        stats_f64 = dict(kernel=float((s.double() - exact).abs().max()),
+                         plain=float((ps.double() - exact).abs().max()))
+    torch.testing.assert_close(s, ps, rtol=stats_rtol, atol=1e-6 * m)
     err = float((v - pv).abs().max())
     ms = time_ms(lambda: ops.select_topk(x, last, s_l, t, cost, mask,
                                          impl="cuda", **kw), iters)
@@ -550,7 +591,8 @@ def check_select(ops, ref, case, k, iters, *, graph=False):
     return dict(m=m, p=p, k=k, matrix_cost=isinstance(cost, torch.Tensor),
                 cand=mask is not None,
                 plan=list(ops.KERNELS["select_topk"].last_plan),
-                flips=flips, max_abs_err=err, ms=ms, device_ms=device_ms,
+                flips=flips, max_abs_err=err, stats_rtol=stats_rtol,
+                stats_err_vs_f64=stats_f64, ms=ms, device_ms=device_ms,
                 host_ms=host_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
 
@@ -572,11 +614,13 @@ def graph_ms(fn, reps: int, per_graph: int = 20) -> float:
     return time_ms(graph.replay, max(1, reps // per_graph)) / per_graph
 
 
-def check_gram(ops, m, p, seed, dev, iters):
-    """raw_gram against the plain version (≤ 1e-4 × the largest entry),
-    a second launch bitwise equal to the first (split-K sums the splits in
-    a fixed order), times per call and, from CUDA-graph replay, on the
-    device alone, beside torch.matmul's."""
+def check_gram(ops, m, p, seed, dev, iters, *, rtol=1e-4, f64=False):
+    """raw_gram against the plain version (≤ rtol × the largest entry:
+    1e-4 at the rounds' P; the LLM headers' P = 2.3e8 states its own; with
+    `f64` both routes' errors against float64 reported), a second launch
+    bitwise equal to the first (split-K sums the splits in a fixed order), times
+    per call and, from CUDA-graph replay, on the device alone, beside
+    torch.matmul's."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -589,8 +633,15 @@ def check_gram(ops, m, p, seed, dev, iters):
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    if not err <= 1e-4 * scale:
-        raise AssertionError(f"raw_gram M={m}: max error {err} > 1e-4 × "
+    err_f64 = None
+    if f64:
+        exact = x.double() @ x.double().T
+        err_f64 = dict(kernel=float((got.double() - exact).abs().max()),
+                   plain=float((want.double() - exact).abs().max()),
+                   scale=float(exact.abs().max()))
+        del exact
+    if not err <= rtol * scale:
+        raise AssertionError(f"raw_gram M={m}: max error {err} > {rtol} × "
                              f"{scale}")
     if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
         raise AssertionError(f"raw_gram M={m}: two launches differ")
@@ -600,6 +651,7 @@ def check_gram(ops, m, p, seed, dev, iters):
     b_ms, b_by = bound(m * p * 4 + m * m * 4, 2.0 * m * m * p)
     return dict(m=m, p=p, tile=tile, splits=splits, chunk=chunk,
                 bitwise_repeat=True, max_abs_err=err, rel_err=err / scale,
+                rtol=rtol, err_vs_f64=err_f64,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms,
                 device_ms=graph_ms(lambda: ops.raw_gram(x, impl="cuda"),
@@ -657,7 +709,7 @@ def check_gossip(ops, ref, case, iters, plain_iters):
                 bound_by=b_by, library_ms=library_ms)
 
 
-def check_evolve(me, shape, dtype, seed, dev, iters):
+def check_evolve(me, shape, dtype, seed, dev, iters, *, lib_iters=None):
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -687,7 +739,8 @@ def check_evolve(me, shape, dtype, seed, dev, iters):
     ms = time_ms(lambda: me.mask_evolve_cuda(x, grow, keep=keep), iters)
     plain_ms = time_ms(lambda: me.mask_evolve_plain(x, grow, keep=keep),
                        iters)
-    library_ms = time_ms(library, iters)
+    library_ms = (time_ms(library, iters) if lib_iters is None
+                  else time_ms(library, lib_iters, warmup=1))
     # x and grow read once, out and mask written once; the work is a
     # comparison and a product per element
     b_ms, b_by = bound(n * (2 * x.element_size() + 2), 2.0 * n)
@@ -3398,6 +3451,438 @@ def moe_phase(dev, ops) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: federated LLM training
+# ---------------------------------------------------------------------------
+
+# (a): PFedDST and three baselines over qwen2-1.5b at full width and depth
+# (bf16), examples/federated_llm.py's settings with M cut from 6 to 4 (the
+# population state is 10.7 GB a client: bf16 parameters, f32 momenta)
+LLM_ARCH = "qwen2-1.5b"
+LLM_FL = dict(num_clients=4, peers_per_round=2, batch_size=8,
+              client_sample_ratio=1.0, lr=0.05, probe_size=4,
+              use_score_kernel=True)
+LLM_SEQ, LLM_SEQS, LLM_DOMAINS, LLM_ROUNDS = 64, 64, 2, 2
+# each strategy, the kernel its round reaches (select_topk and raw_gram
+# once a round, mask_evolve one call over every leaf, gossip_mix once a
+# column block of the packed extractor) and its FLConfig changes: a
+# gossip plan is packed for gossip_mix only when its degree bound D =
+# k + 1 is at most M / 2 (the reference's rule), so at M = 4 dfedpgp
+# picks k = 1 peer (at k = 2 both packages mix dense)
+LLM_PATHS = (("pfeddst", "select_topk", {}),
+             ("pfeddst_random", "raw_gram", {}),
+             ("dfedpgp", "gossip_mix", {"peers_per_round": 1}),
+             ("dispfl", "mask_evolve", {}))
+# (c): one remat pair step a family at full width, its depth cut where the
+# functional step's memory (`pair_step_gb`) would pass ~60 GB of the 80;
+# deepseek-v3 is left out at full width: one layer's 256 experts hold
+# 11.3e9 parameters, 90 GB with their gradients and f32 momenta
+TRAIN_DEPTHS = {"rwkv6-7b": 10, "phi3.5-moe-42b-a6.6b": 2,
+                "internvl2-76b": 2}
+TRAIN_ARCHS = ("rwkv6-7b", "recurrentgemma-2b", "whisper-base",
+               "phi3.5-moe-42b-a6.6b", "internvl2-76b")
+TRAIN_BATCH, TRAIN_SEQ = 8, 64
+# (b): launch/train.py at (a)'s settings (its FLConfig keeps the default
+# probe_size and use_score_kernel=False)
+TRAIN_CLI_ARGV = ["--arch", LLM_ARCH, "--strategy", "pfeddst",
+                  "--clients", "4", "--peers", "2", "--batch-size", "8",
+                  "--sample-ratio", "1.0", "--lr", "0.05",
+                  "--steps-per-epoch", "1", "--seq-len", str(LLM_SEQ),
+                  "--rounds", str(LLM_ROUNDS), "--eval-every", "1"]
+
+
+def train_config(arch):
+    """`arch`'s config at full width, its depth cut to TRAIN_DEPTHS (a
+    hybrid's block pattern cut with it)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch in TRAIN_DEPTHS:
+        cfg = dataclasses.replace(cfg, num_layers=TRAIN_DEPTHS[arch])
+        if cfg.block_pattern:
+            cfg = dataclasses.replace(
+                cfg, block_pattern=cfg.block_pattern[:cfg.num_layers])
+    return cfg
+
+
+def pair_step_gb(n_e: int, n_h: int) -> float:
+    """Predicted peak GB of a functional pair step (its phase e): bf16
+    parameters and f32 SGD momenta of both partitions, and for the
+    extractor its gradient (2 B), new momentum (4 B), f32 update (4 B)
+    and new values (2 B)."""
+    return (6 * (n_e + n_h) + 12 * n_e) / 1e9
+
+
+def llm_batch(cfg, tokens, dev):
+    """A training batch of `cfg`'s family: the tokens, internvl2's
+    `num_prefix_tokens` prefix rows (read through vision_proj), whisper's
+    encoder frames."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    batch = {"tokens": tokens}
+    dt = getattr(torch, cfg.dtype)
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = torch.randn(
+            (tokens.shape[0], cfg.num_prefix_tokens, cfg.d_model),
+            generator=g, device=dev).to(dt)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(
+            (tokens.shape[0], cfg.encoder_seq, cfg.d_model), generator=g,
+            device=dev).to(dt)
+    return batch
+
+
+class KernelCheck:
+    """Patches one `kernels.ops` entry point for a path's run. The real
+    call is made (and counted by the kernel's wrapper); the first call's
+    inputs (for mask_evolve, which writes in place, its largest leaf and
+    grow plane) are copied with its result, and `check()` then holds that
+    result to the plain version on the copies, outside the run."""
+
+    def __init__(self, ops, name):
+        self.ops, self.name, self.seen = ops, name, None
+        self.real = getattr(ops, name)
+
+    def __enter__(self):
+        import torch
+
+        real = self.real
+
+        def wrapped(*args, **kw):
+            if self.seen is not None:
+                return real(*args, **kw)
+            if self.name == "mask_evolve_leaves":
+                leaves, grows, keeps = args[:3]
+                big = max(range(len(leaves)),
+                          key=lambda i: leaves[i].numel())
+                saved = (leaves[big].clone(), grows[big].clone(),
+                         keeps[big])
+                out = real(*args, **kw)
+                self.seen = (saved, (out[big][0].clone(),
+                                     out[big][1].clone()))
+                return out
+            saved = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                          for a in args)
+            out = real(*args, **kw)
+            self.seen = (saved, dict(kw), out.clone()
+                         if isinstance(out, torch.Tensor)
+                         else tuple(o.clone() for o in out))
+            return out
+
+        setattr(self.ops, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.name, self.real)
+
+    def check(self) -> dict:
+        import torch
+
+        from repro_torch.core.selection import topk_to_mask
+        from repro_torch.kernels import mask_evolve as me
+
+        if self.seen is None:
+            raise AssertionError(f"{self.name} was not called on the path")
+        if self.name == "mask_evolve_leaves":
+            (x, grow, keep), (out, mask) = self.seen
+            p_out, p_mask, _ = me.mask_evolve_plain(x, grow, keep=keep)
+            bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+            if not (torch.equal(mask, p_mask)
+                    and torch.equal(out.view(bits), p_out.view(bits))):
+                raise AssertionError("mask_evolve on the LLM path differs "
+                                     "from the plain version")
+            self.seen = None
+            return dict(leaf=list(x.shape), dtype=str(x.dtype).split(".")[-1],
+                        bitwise=True)
+        args, kw, out = self.seen
+        self.seen = None
+        kw = {k: v for k, v in kw.items() if k != "impl"}
+        plain = self.real(*args, impl="plain", **kw)
+        if self.name == "select_topk":
+            m = args[0].shape[0]
+            if not torch.equal(topk_to_mask(out[1], out[0], m),
+                               topk_to_mask(plain[1], plain[0], m)):
+                raise AssertionError("select_topk's mask on the LLM path "
+                                     "differs from the plain version's")
+            return dict(shape=list(args[0].shape), mask_equal=True,
+                        max_abs_err=float((out[0] - plain[0]).abs().max()),
+                        plan=list(self.ops.KERNELS["select_topk"].last_plan))
+        if self.name == "gossip_mix":
+            if not torch.equal(out.view(torch.int32),
+                               plain.view(torch.int32)):
+                raise AssertionError("gossip_mix on the LLM path differs "
+                                     "from the plain version (bitwise)")
+            return dict(shape=list(args[0].shape), bitwise=True)
+        # raw_gram: P-term f32 sums at P = 2.3e8, held as in
+        # llm_kernel_cells
+        err = float((out - plain).abs().max())
+        scale = float(plain.abs().max())
+        if not err <= 1e-3 * scale:
+            raise AssertionError(f"raw_gram on the LLM path: error {err} > "
+                                 f"1e-3 × {scale}")
+        return dict(shape=list(args[0].shape), max_abs_err=err,
+                    rel_err=err / scale,
+                    plan=list(self.ops.KERNELS["raw_gram"].last_plan))
+
+
+def llm_data(cfg):
+    """synth_tokens over LLM_DOMAINS domains, cut as launch/train.py's
+    build_data cuts it (the first n // 5 sequences are the test split)."""
+    from repro_torch.data.synthetic import synth_tokens
+
+    tokens, _ = synth_tokens(0, LLM_FL["num_clients"], cfg.vocab_size,
+                             LLM_SEQ, seqs_per_client=LLM_SEQS,
+                             num_domains=LLM_DOMAINS)
+    n_te = max(1, LLM_SEQS // 5)
+    return {"train_x": tokens[:, n_te:], "train_y": tokens[:, n_te:, 0] * 0,
+            "test_x": tokens[:, :n_te], "test_y": tokens[:, :n_te, 0] * 0}
+
+
+def run_llm_path(name, kernel, changes, cfg, data, dev, ops):
+    """(a) one strategy over qwen2-1.5b: LLM_ROUNDS rounds through
+    `run_experiment`, eval every round, the launch counters set to 0 just
+    before and read just after; the kernel's first call held to its plain
+    version (`KernelCheck`)."""
+    import torch
+
+    from repro_torch.configs import FLConfig
+    from repro_torch.fl.simulator import run_experiment
+
+    fl = FLConfig(**{**LLM_FL, **changes})
+    hook = "mask_evolve_leaves" if kernel == "mask_evolve" else kernel
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with KernelCheck(ops, hook) as probe:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = run_experiment(name, cfg, fl, data, num_rounds=LLM_ROUNDS,
+                              eval_every=1, steps_per_epoch=1, seed=0,
+                              verbose=False, device=dev)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    h = hist.to_dict()
+    if not all(math.isfinite(v) for v in h["train_loss"] + h["accuracy"]):
+        raise AssertionError(f"llm {name}: losses {h['train_loss']}, "
+                             f"accuracy {h['accuracy']}")
+    if launches[kernel] < LLM_ROUNDS:
+        raise AssertionError(f"llm {name}: {kernel} launched "
+                             f"{launches[kernel]} times in {LLM_ROUNDS} "
+                             "rounds")
+    checked = probe.check()
+    row = dict(name=name, kernel=kernel, changes=changes, rounds=LLM_ROUNDS,
+               accuracy=h["accuracy"], train_loss=h["train_loss"],
+               first_round_s=h["compile_s"], steady_round_s=h["wall_s"][-1],
+               run_s=total, peak_gb=peak / 1e9, base_gb=base / 1e9,
+               launches={k: v for k, v in launches.items() if v},
+               launches_text=f"{launches[kernel]} in {LLM_ROUNDS}",
+               kernel_check=checked)
+    print(f"llm {name}: steady round {row['steady_round_s']:.3f} s, peak "
+          f"{row['peak_gb']:.2f} GB, {kernel} {row['launches_text']} "
+          f"rounds, losses {h['train_loss']}", flush=True)
+    return row
+
+
+def run_train_cli(ops) -> dict:
+    """(b) launch/train.py's main on TRAIN_CLI_ARGV in this process (the
+    launch counters set to 0 around it): its final-accuracy line, finite
+    losses."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+
+    from repro_torch.launch import train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        record = train.main(TRAIN_CLI_ARGV)
+    total = time.perf_counter() - t0
+    text = buf.getvalue()
+    last = text.strip().splitlines()[-1]
+    print("cli:", last, flush=True)
+    if not last.startswith("final personalized accuracy:") or not all(
+            math.isfinite(v) for v in record["train_loss"]
+            + record["accuracy"]):
+        raise AssertionError(f"launch.train: {text[-400:]}")
+    row = dict(argv=TRAIN_CLI_ARGV, last_line=last, total_s=total,
+               accuracy=record["accuracy"], train_loss=record["train_loss"],
+               steady_round_s=record["wall_s"][-1],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches={k: v for k, v in ops.launch_counts().items() if v})
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_pair_step(arch, dev) -> dict:
+    """(c) one `make_train_pair_step(..., remat=True)` step (phase e, then
+    phase h; SGD at (a)'s lr) of `arch` at full width and its
+    TRAIN_DEPTHS depth, bf16, batch 8 × 64 tokens."""
+    import torch
+
+    from repro_torch.configs import FLConfig
+    from repro_torch.launch.steps import make_train_pair_step
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.split import split_params
+    from repro_torch.optim.sgd import sgd
+    from repro_torch.utils.pytree import tree_size
+
+    cfg = train_config(arch)
+    fl = FLConfig(**LLM_FL)
+    opt = sgd(fl.lr, momentum=fl.momentum, weight_decay=fl.weight_decay)
+    torch.cuda.empty_cache()
+    e, h = split_params(cfg, model_mod.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    n_e, n_h = tree_size(e), tree_size(h)
+    oe, oh = opt.init(e), opt.init(h)
+    tokens = torch.randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), device=dev,
+        dtype=torch.int32,
+        generator=torch.Generator(device=dev).manual_seed(3))
+    batch = llm_batch(cfg, tokens, dev)
+    step = make_train_pair_step(cfg, opt, opt, remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    e2, h2, _, _, met = step(e, h, oe, oh, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = {k: float(v) for k, v in met.items()}
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"pair step {arch}: losses {losses}")
+    row = dict(arch=arch, layers=cfg.num_layers, params=n_e + n_h,
+               extractor=n_e, header=n_h, losses=losses, wall_s=wall,
+               predicted_gb=pair_step_gb(n_e, n_h), peak_gb=peak)
+    print(f"pair step {arch} ({cfg.num_layers} layers, "
+          f"{(n_e + n_h) / 1e9:.3f}e9 params): losses {losses}, "
+          f"{wall:.2f} s, peak {peak:.1f} GB (predicted "
+          f"{row['predicted_gb']:.1f})", flush=True)
+    del e, h, oe, oh, e2, h2, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_train_agreement(dev) -> dict:
+    """(d) every family's reduced config in f32: loss_fn's total and
+    metrics and every parameter's gradient on the card against the CPU's,
+    from the same CPU-drawn parameters and batch (rwkv6 by the recurrence
+    and by `wkv_chunked_torch`): the loss within 1e-5 relative, each
+    gradient within 1e-4 of its scale."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_mod
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    out = {}
+    for arch in AGREE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32")
+        params = model_mod.init_params(cfg, torch.Generator().manual_seed(0),
+                                       "cpu")
+        g = torch.Generator().manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24),
+                                         generator=g)}
+        if cfg.family == "vlm":
+            batch["prefix_embeds"] = torch.randn((2, 3, cfg.d_model),
+                                                 generator=g)
+        if cfg.family == "audio":
+            batch["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                          generator=g)
+        for backend in (("auto", "chunked") if cfg.family == "ssm"
+                        else ("auto",)):
+            res = []
+            for device in ("cpu", dev):
+                p = tree_map(lambda t: t.to(device).requires_grad_(True),
+                             params)
+                b = {k: v.to(device) for k, v in batch.items()}
+                total, met = model_mod.loss_fn(cfg, p, b, backend=backend)
+                grads = torch.autograd.grad(total, tree_leaves(p),
+                                            allow_unused=True,
+                                            materialize_grads=True)
+                res.append((float(total),
+                            {k: float(v) for k, v in met.items()},
+                            [x.detach().cpu() for x in grads]))
+            (lc, mc, gc), (lg, mg, gg) = res
+            rel = abs(lc - lg) / max(1.0, abs(lc))
+            grad_err = max(float((a - b).abs().max())
+                           / max(1.0, float(b.abs().max()))
+                           for a, b in zip(gg, gc))
+            if rel > 1e-5 or grad_err > 1e-4 or any(
+                    abs(mc[k] - mg[k]) > 1e-5 * max(1.0, abs(mc[k]))
+                    for k in mc):
+                raise AssertionError(f"train agreement {arch} {backend}: "
+                                     f"loss {lg} vs {lc}, grads {grad_err}")
+            out[f"{arch}/{backend}"] = dict(loss_rel_err=rel,
+                                            grad_err_of_scale=grad_err)
+    return out
+
+
+def llm_kernel_cells(ops, ref, me, dev, cfg) -> dict:
+    """The four kernels on (a)'s path at its shapes, against their plain
+    versions, timed beside them and the library call: select_topk (the
+    default fabric's cost matrix and candidate mask) and raw_gram on the
+    (4, P) f32 headers, gossip_mix on one column block of the packed
+    extractor (dfedpgp's directed plan at k = 1, D = 2), mask_evolve on the
+    largest stacked leaf (the embedding, 4 × 152064 × 1536 bf16)."""
+    import torch
+
+    from repro_torch.fl.engine import F32_BLOCK_COLUMNS
+
+    m = LLM_FL["num_clients"]
+    p = cfg.d_model * cfg.padded_vocab + cfg.d_model   # lm_head + norm
+    k = LLM_FL["peers_per_round"]
+    cells = {}
+    # the row statistics are sums of f32 cosines over P = 2.3e8 terms:
+    # held within 1e-3 relative, and each route's error against float64
+    # reported
+    cells["select_topk"] = check_select(ops, ref, select_case(
+        m, p, k, matrix_cost=True, cand=True, seed=21, dev=dev), k, 5,
+        stats_rtol=1e-3, f64=True)
+    torch.cuda.empty_cache()
+    cells["raw_gram"] = check_gram(ops, m, p, 22, dev, 5, rtol=1e-3,
+                                   f64=True)
+    torch.cuda.empty_cache()
+    cells["gossip_mix"] = check_gossip(ops, ref, gossip_case(
+        m, F32_BLOCK_COLUMNS, 1, m, 23, dev), 10, 2)
+    torch.cuda.empty_cache()
+    cells["mask_evolve"] = check_evolve(
+        me, (m, cfg.padded_vocab, cfg.d_model), torch.bfloat16, 24, dev, 5,
+        lib_iters=1)
+    torch.cuda.empty_cache()
+    for name, row in cells.items():
+        print(f"llm shape {name}", json.dumps(row), flush=True)
+    return cells
+
+
+def llm_train_phase(dev, ops, ref, me) -> dict:
+    """Phase 12: (a) the four strategies over qwen2-1.5b, (b) the training
+    CLI, (c) one pair step a family, (d) card = CPU, then the kernels at
+    the LLM path's shapes."""
+    cfg = train_config(LLM_ARCH)
+    data = llm_data(cfg)
+    paths = [run_llm_path(name, kernel, changes, cfg, data, dev, ops)
+             for name, kernel, changes in LLM_PATHS]
+    cli = run_train_cli(ops)
+    steps = [run_pair_step(arch, dev) for arch in TRAIN_ARCHS]
+    agree = check_train_agreement(dev)
+    print("agree: training loss and gradients, card against CPU",
+          json.dumps(agree), flush=True)
+    cells = llm_kernel_cells(ops, ref, me, dev, cfg)
+    return dict(cells=cells, paths=paths, cli=cli, pair_steps=steps,
+                agree=agree)
+
+
 def main() -> int:
     try:
         import torch
@@ -3731,6 +4216,17 @@ def main() -> int:
     walls["11 moe"] = time.perf_counter() - t_phase
     print(f"phase 11 wall: {walls['11 moe']:.1f} s", flush=True)
 
+    t_phase = time.perf_counter()
+    # ---- 12. federated LLM training ----------------------------------------
+    llm = llm_train_phase(dev, ops, ref, me)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_llm.json").write_text(json.dumps(llm))
+    print("llm paths:", json.dumps(llm["paths"]), flush=True)
+    print("llm cli:", json.dumps(llm["cli"]), flush=True)
+    print("llm pair steps:", json.dumps(llm["pair_steps"]), flush=True)
+    walls["12 llm"] = time.perf_counter() - t_phase
+    print(f"phase 12 wall: {walls['12 llm']:.1f} s", flush=True)
+
     # ---- output -------------------------------------------------------------
     k_main = main_sel[-1]
     assert k_main["matrix_cost"] and k_main["cand"]
@@ -3820,7 +4316,16 @@ def main() -> int:
                                     launches_fabric.items()}
     kernels[0]["launches_async"] = \
         async_rows["stragglers"]["launches"]["select_topk"]
+    llm_launches = {r["kernel"]: r["launches"].get(r["kernel"], 0)
+                    for r in llm["paths"]}
     for entry in kernels:
+        name = entry["name"]
+        if name in llm_launches:
+            cell = llm["cells"][name]
+            entry["launches_llm"] = llm_launches[name]
+            entry["llm_shape"] = {k: cell[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms") if k in cell}
         if entry["name"] in launches_ow:
             entry["launches_openworld"] = launches_ow[entry["name"]]
         if entry["name"] in launches_driver:

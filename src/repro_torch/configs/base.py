@@ -350,6 +350,7 @@ class FLConfig:
     dispfl_sparsity: float = 0.5       # personal-mask sparsity
     dispfl_regrow: float = 0.02        # RigL-style random regrow rate/round
     classes_per_client: int = 2        # pathological partition
+    seed: int = 0
     # network model; None → the scalar-cost path (no candidate masking,
     # no byte accounting)
     comms: Optional[CommsConfig] = field(default_factory=CommsConfig)

@@ -13,8 +13,12 @@ conv weight are transposed.
 
 The LLM families keep the reference's nested dicts and layout unchanged:
 (L, …) stacked leaves (dense, ssm, audio), the hybrid family's list of
-per-layer dicts, (d_in, d_out) weights that the port applies as x @ W. The HWIO↔OIHW transpose is a property of the cnn
-family; it applies to a cnn tree's conv leaves and to no other family's.
+per-layer dicts, (d_in, d_out) weights that the port applies as x @ W,
+client-stacked populations too (`family=` names the layout). The
+HWIO↔OIHW transpose is a property of the cnn family; it applies to a
+cnn tree's conv leaves and to no other family's. Optimizer states cross
+as the reference holds them: SGD's {"mu", "count"}, AdamW's {"m", "v",
+"count"}, moments in float32.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 from repro_torch.core.client_state import PopulationState
 from repro_torch.device import resolve_device
 from repro_torch.fl.hetero import PeerStore
+from repro_torch.utils.pytree import tree_map
 
 CONV_LEAVES = ("conv", "conv1", "conv2", "proj")
 
@@ -69,15 +74,18 @@ def unflatten_tree(flat: dict) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = leaf
 
-    def listify(node):
-        if not isinstance(node, dict):
-            return node
-        node = {k: listify(v) for k, v in node.items()}
-        if node and all(k.isdigit() for k in node):
-            return [node[str(i)] for i in range(len(node))]
-        return node
+    return _listify(root)
 
-    return listify(root)
+
+def _listify(node):
+    """Dicts keyed 0..n−1 → lists, recursively (a module-level function:
+    a self-calling closure would be a reference cycle)."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
 
 
 def _leaf_to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -119,31 +127,49 @@ def params_to_reference(params: dict, *, family: str = "cnn") -> dict:
     return unflatten_tree(flat)
 
 
-def _opt_from_reference(opt, device):
-    mu = params_from_reference(opt["mu"], device=device)
-    return {"mu": {n: t.float() for n, t in mu.items()},
-            "count": torch.from_numpy(np.array(opt["count"], np.int32)).to(
-                device)}
+# the moment trees of each optimizer state (SGD: mu; AdamW: m, v), the
+# rest of a state being its step count
+MOMENT_KEYS = ("mu", "m", "v")
 
 
-def _opt_to_reference(opt):
-    return {"mu": params_to_reference(opt["mu"]),
-            "count": opt["count"].cpu().numpy()}
+def opt_from_reference(opt, device="cuda", *, family: str = "cnn") -> dict:
+    """A reference SGD ({"mu", "count"}) or AdamW ({"m", "v", "count"})
+    state of numpy arrays (any leading axes) → the port's on `device`,
+    the moments float32 in the family's parameter layout."""
+    device = resolve_device(device)
+    out = {k: tree_map(lambda t: t.float(), params_from_reference(
+        opt[k], device=device, family=family))
+        for k in MOMENT_KEYS if k in opt}
+    out["count"] = torch.from_numpy(np.array(opt["count"], np.int32)).to(
+        device)
+    return out
 
 
-def population_from_reference(state_np, device="cuda") -> PopulationState:
+def opt_to_reference(opt, *, family: str = "cnn") -> dict:
+    """The port's optimizer state → the reference's, as numpy trees."""
+    out = {k: params_to_reference(opt[k], family=family)
+           for k in MOMENT_KEYS if k in opt}
+    out["count"] = opt["count"].cpu().numpy()
+    return out
+
+
+def population_from_reference(state_np, device="cuda", *,
+                              family: str = "cnn") -> PopulationState:
     """A reference PopulationState whose leaves are numpy arrays (fields
     by attribute or key) → the port's PopulationState on `device`,
-    including the optimizer momenta, loss_matrix, last_selected and round;
-    raises if `device` names CUDA and there is none."""
+    including the optimizer states (SGD or AdamW), loss_matrix,
+    last_selected and round; `family` names the parameters' layout (the
+    cnn's flat dotted names, or an LLM's nested trees, client-stacked).
+    Raises if `device` names CUDA and there is none."""
     device = resolve_device(device)
     get =(state_np.__getitem__ if isinstance(state_np, dict)
            else lambda f: getattr(state_np, f))
+    kw = dict(device=device, family=family)
     return PopulationState(
-        extractor=params_from_reference(get("extractor"), device=device),
-        header=params_from_reference(get("header"), device=device),
-        opt_e=_opt_from_reference(get("opt_e"), device),
-        opt_h=_opt_from_reference(get("opt_h"), device),
+        extractor=params_from_reference(get("extractor"), **kw),
+        header=params_from_reference(get("header"), **kw),
+        opt_e=opt_from_reference(get("opt_e"), **kw),
+        opt_h=opt_from_reference(get("opt_h"), **kw),
         loss_matrix=torch.from_numpy(
             np.array(get("loss_matrix"), np.float32)).to(device),
         last_selected=torch.from_numpy(
@@ -174,7 +200,8 @@ def _store_from_reference(store, device):
         lag=torch.from_numpy(np.array(get("lag"), np.int32)).to(device))
 
 
-def population_to_reference(state: PopulationState) -> dict:
+def population_to_reference(state: PopulationState, *,
+                            family: str = "cnn") -> dict:
     """The port's PopulationState → a dict of the reference's fields as
     numpy trees (reference layout); a peer store as a dict of its
     fields."""
@@ -185,10 +212,10 @@ def population_to_reference(state: PopulationState) -> dict:
                  "pub_round": state.store.pub_round.cpu().numpy(),
                  "lag": state.store.lag.cpu().numpy()}
     return {
-        "extractor": params_to_reference(state.extractor),
-        "header": params_to_reference(state.header),
-        "opt_e": _opt_to_reference(state.opt_e),
-        "opt_h": _opt_to_reference(state.opt_h),
+        "extractor": params_to_reference(state.extractor, family=family),
+        "header": params_to_reference(state.header, family=family),
+        "opt_e": opt_to_reference(state.opt_e, family=family),
+        "opt_h": opt_to_reference(state.opt_h, family=family),
         "loss_matrix": state.loss_matrix.cpu().numpy(),
         "last_selected": state.last_selected.cpu().numpy(),
         "round": state.round.cpu().numpy(),
@@ -196,31 +223,33 @@ def population_to_reference(state: PopulationState) -> dict:
     }
 
 
-def baseline_state_from_reference(state_np: dict, device="cuda") -> dict:
+def baseline_state_from_reference(state_np: dict, device="cuda", *,
+                                  family: str = "cnn") -> dict:
     """A reference baseline state of numpy arrays — {"params", "opt"
     ({"mu", "count"}, or {"e": ...} for fedbabu), "round"[, "mask"]} —
-    → the port's dict state on `device` (masks transposed like the conv
-    weights they cover); raises if `device` names CUDA and there is
-    none."""
+    → the port's dict state on `device` (a cnn's masks transposed like
+    the conv weights they cover); raises if `device` names CUDA and there
+    is none."""
     device = resolve_device(device)
+    kw = dict(device=device, family=family)
     opt = state_np["opt"]
-    out = {"params": params_from_reference(state_np["params"], device),
-           "opt": ({"e": _opt_from_reference(opt["e"], device)}
-                   if "e" in opt else _opt_from_reference(opt, device)),
+    out = {"params": params_from_reference(state_np["params"], **kw),
+           "opt": ({"e": opt_from_reference(opt["e"], **kw)}
+                   if "e" in opt else opt_from_reference(opt, **kw)),
            "round": torch.from_numpy(np.array(state_np["round"], np.int32))}
     if "mask" in state_np:
-        out["mask"] = params_from_reference(state_np["mask"], device)
+        out["mask"] = params_from_reference(state_np["mask"], **kw)
     return out
 
 
-def baseline_state_to_reference(state: dict) -> dict:
+def baseline_state_to_reference(state: dict, *, family: str = "cnn") -> dict:
     """The port's baseline dict state → the reference's, as numpy trees
     (reference layout)."""
     opt = state["opt"]
-    out = {"params": params_to_reference(state["params"]),
-           "opt": ({"e": _opt_to_reference(opt["e"])} if "e" in opt
-                   else _opt_to_reference(opt)),
+    out = {"params": params_to_reference(state["params"], family=family),
+           "opt": ({"e": opt_to_reference(opt["e"], family=family)}
+                   if "e" in opt else opt_to_reference(opt, family=family)),
            "round": state["round"].cpu().numpy()}
     if "mask" in state:
-        out["mask"] = params_to_reference(state["mask"])
+        out["mask"] = params_to_reference(state["mask"], family=family)
     return out

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.utils.pytree import tree_map
+
 
 def selection_to_weights(select_mask, *, include_self: bool = True,
                          data_fractions=None, column_scale=None):
@@ -47,26 +49,43 @@ def staleness_weights(select_mask, lag, *, alpha: float,
                                 column_scale=discount)
 
 
-def aggregate_extractors(stacked_extractor: dict, weights) -> dict:
+# columns of an (M, ·) float32 copy made at once, by the extractor mix
+# here and by `fl.engine.mix_tree`'s packed gossip_mix blocks: every cnn
+# leaf and a cnn's whole packed tree (11.2 M columns for ResNet-18) in one
+# piece; an LLM's (1.5e9 columns for qwen2-1.5b's extractor, a 24.7 GB f32
+# copy at M = 4) in pieces of 1.07 GB each at M = 4
+F32_BLOCK_COLUMNS = 1 << 26
+
+
+def aggregate_extractors(stacked_extractor, weights):
     """e_i ← Σ_j w_ij e_j per leaf, in float32, cast back to the leaf's
-    dtype. stacked_extractor: dict of (M, ...) tensors."""
+    dtype (a leaf wider than F32_BLOCK_COLUMNS a column slice at a time).
+    stacked_extractor: a tree of (M, ...) tensors."""
     wf = weights.float()
-    out = {}
-    for name, leaf in stacked_extractor.items():
-        mixed = wf @ leaf.reshape(leaf.shape[0], -1).float()
-        out[name] = mixed.reshape(leaf.shape).to(leaf.dtype)
-    return out
+
+    def mix(leaf):
+        flat = leaf.reshape(leaf.shape[0], -1)
+        if flat.shape[1] <= F32_BLOCK_COLUMNS:
+            return (wf @ flat.float()).reshape(leaf.shape).to(leaf.dtype)
+        out = torch.empty_like(flat)
+        for c0 in range(0, flat.shape[1], F32_BLOCK_COLUMNS):
+            c1 = c0 + F32_BLOCK_COLUMNS
+            out[:, c0:c1] = (wf @ flat[:, c0:c1].float()).to(leaf.dtype)
+        return out.reshape(leaf.shape)
+
+    return tree_map(mix, stacked_extractor)
 
 
-def mean_over_active(tree: dict, active) -> dict:
+def mean_over_active(tree, active):
     """Server step of the FedAvg family: the uniform f32 average of the
     active clients' leaves, cast back to each leaf's dtype and broadcast
     to all M rows. All-zero when no client is active; callers guard with
     `fl.engine.keep_if_none_active`."""
     w = active.float()
     w = w / w.sum().clamp_min(1.0)
-    out = {}
-    for name, leaf in tree.items():
-        avg = (w @ leaf.reshape(leaf.shape[0], -1).float()).to(leaf.dtype)
-        out[name] = avg.reshape(leaf.shape[1:]).expand(leaf.shape).clone()
-    return out
+
+    def avg(leaf):
+        a = (w @ leaf.reshape(leaf.shape[0], -1).float()).to(leaf.dtype)
+        return a.reshape(leaf.shape[1:]).expand(leaf.shape).clone()
+
+    return tree_map(avg, tree)

@@ -15,6 +15,12 @@ import torch
 from repro_torch.models import model as model_mod
 from repro_torch.models.split import split_params
 from repro_torch.optim.base import Optimizer
+from repro_torch.utils.pytree import tree_map
+
+
+def client_rows(tree, i: int):
+    """Client i's entries of a stacked tree (views, no copies)."""
+    return tree_map(lambda x: x[i], tree)
 
 
 class PopulationState(NamedTuple):
@@ -31,29 +37,49 @@ class PopulationState(NamedTuple):
 
 
 def stack_trees(trees: list):
-    """List of per-client states (dicts/tensors) → one stacked state."""
+    """List of per-client states (dicts, lists, tensors) → one stacked
+    state."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(stack_trees([t[i] for t in trees])
+                           for i in range(len(first)))
     return torch.stack(trees)
+
+
+def stack_built(make, m: int):
+    """The stacked tree of make(0), …, make(m − 1), called in that order:
+    each client's tree is copied into the (M, …) buffers allocated from
+    the first and then dropped, so at most one client's tree is alive
+    beside the stack (an LLM population leaves no room for M separate
+    copies). Equal to `stack_trees([make(i) for i in range(m)])`."""
+    first = make(0)
+    out = tree_map(lambda t: t.new_empty((m,) + tuple(t.shape)), first)
+    tree_map(lambda o, t: o[0].copy_(t), out, first)
+    del first
+    for i in range(1, m):
+        tree_map(lambda o, t: o[i].copy_(t), out, make(i))
+    return out
 
 
 def init_population(cfg, generator: torch.Generator, num_clients: int,
                     opt_e: Optimizer, opt_h: Optimizer,
                     device) -> PopulationState:
-    """Independent random init per client; `generator` lives on `device`."""
-    extractors, headers = [], []
-    for _ in range(num_clients):
-        e, h = split_params(cfg, model_mod.init_params(cfg, generator,
-                                                       device))
-        extractors.append(e)
-        headers.append(h)
+    """Independent random init per client, drawn in client order from
+    `generator` (on `device`); each client's optimizer states from its
+    own partitions."""
     m = num_clients
+    params = stack_built(
+        lambda i: model_mod.init_params(cfg, generator, device), m)
+    extractor, header = split_params(cfg, params)
+    del params
     return PopulationState(
-        extractor=stack_trees(extractors),
-        header=stack_trees(headers),
-        opt_e=stack_trees([opt_e.init(e) for e in extractors]),
-        opt_h=stack_trees([opt_h.init(h) for h in headers]),
+        extractor=extractor,
+        header=header,
+        opt_e=stack_built(lambda i: opt_e.init(client_rows(extractor, i)),
+                          m),
+        opt_h=stack_built(lambda i: opt_h.init(client_rows(header, i)), m),
         loss_matrix=torch.zeros((m, m), dtype=torch.float32, device=device),
         last_selected=torch.full((m, m), -1, dtype=torch.int32,
                                  device=device),

@@ -65,10 +65,10 @@ from repro_torch.data.pipeline import sample_client_batches
 from repro_torch.fl.engine import (
     ExchangePlan,
     RoundContext,
-    gather_rows,
     run_round,
-    scatter_rows,
-    train_sampled,
+    train_rows,
+    trains_in_place,
+    where_rows_,
     where_tree,
 )
 from repro_torch.fl.hetero import (
@@ -102,6 +102,7 @@ def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
     own (always fresh) model and do not version. With a uniform profile
     and an infinite deadline every hetero operation is an identity."""
     defense = fl.threat.defense if fl.threat is not None else "none"
+    in_place = trains_in_place(cfg)
 
     def score_select(state: PopulationState, ctx: RoundContext):
         # ---- 1. scoring — Eq. 6 restricted to the sampled rows ------------
@@ -109,9 +110,8 @@ def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
         probe = sample_client_batches(ctx.streams["probe"], ctx.data,
                                       probe_size, idx=ctx.draw("probe"))
         params = merge_params(state.extractor, state.header)
-        s_l_rows = loss_disparity_rows(cfg, gather_rows(params,
-                                                        ctx.sampled_idx),
-                                       probe)                    # (n, M)
+        s_l_rows = loss_disparity_rows(cfg, params, probe,
+                                       rows=ctx.sampled_rows())  # (n, M)
         s_l = state.loss_matrix.clone()
         s_l[ctx.sampled_idx] = s_l_rows
         header_view = state.header
@@ -237,51 +237,36 @@ def make_pfeddst_stages(cfg, fl, steps: PhaseSteps, *,
                 clip=fl.threat.clip_factor)
         else:
             agg_e = aggregate_extractors(src_e, ctx.plan.weights)
-        ctx.aux["agg_e"] = where_tree(ctx.active, agg_e, state.extractor)
+        ctx.aux["agg_e"] = where_rows_(ctx.active, agg_e, state.extractor)
         return state
 
-    def _active_mean(loss_row, active):
-        return (loss_row * active).sum() / active.sum().clamp_min(1)
+    def _sampled_mean(last, ctx):
+        """The last step's losses of the sampled rows (n,), averaged over
+        the active clients."""
+        loss_full = torch.zeros(ctx.m, device=last.device)
+        loss_full[ctx.sampled_idx] = last
+        return ((loss_full * ctx.active).sum()
+                / ctx.active.sum().clamp_min(1))
 
     def phase_e(state: PopulationState, ctx: RoundContext):
         # ---- 4. phase-e (header frozen) -----------------------------------
-        idx = ctx.sampled_idx
-        agg_sub, h_sub, oe_sub, e_sub = gather_rows(
-            (ctx.aux["agg_e"], state.header, state.opt_e, state.extractor),
-            idx)
-        new_e, opt_e, loss_e = train_sampled(
-            ctx, steps.phase_e, agg_sub, h_sub, oe_sub, "e",
-            fl.epochs_extractor * steps_per_epoch, fl.batch_size)
-        act_sub = ctx.active[idx]
-        new_e = scatter_rows(state.extractor, idx,
-                             where_tree(act_sub, new_e, e_sub))
-        opt_e = scatter_rows(state.opt_e, idx,
-                             where_tree(act_sub, opt_e, oe_sub))
-        loss_full = torch.zeros(ctx.m, device=loss_e.device)
-        loss_full[idx] = loss_e[-1]
-        ctx.metrics["train_loss_e"] = _active_mean(loss_full, ctx.active)
+        # the aggregated extractor (inactive rows hold their own) is
+        # trained on the active rows and becomes the extractor
+        new_e, opt_e, loss_e = train_rows(
+            ctx, steps.phase_e, ctx.aux.pop("agg_e"), state.header,
+            state.opt_e, "e", fl.epochs_extractor * steps_per_epoch,
+            fl.batch_size, in_place=in_place)
+        ctx.metrics["train_loss_e"] = _sampled_mean(loss_e[-1], ctx)
         return state._replace(extractor=new_e, opt_e=opt_e)
 
     def phase_h(state: PopulationState, ctx: RoundContext):
         # ---- 5. phase-h (extractor frozen) --------------------------------
-        idx = ctx.sampled_idx
-        h_sub, e_sub, oh_sub = gather_rows(
-            (state.header, state.extractor, state.opt_h), idx)
-
-        def step(h, e, o, batch):
-            return steps.phase_h(e, h, o, batch)
-
-        new_h, opt_h, loss_h = train_sampled(
-            ctx, step, h_sub, e_sub, oh_sub, "h",
-            fl.epochs_header * steps_per_epoch, fl.batch_size)
-        act_sub = ctx.active[idx]
-        new_h = scatter_rows(state.header, idx,
-                             where_tree(act_sub, new_h, h_sub))
-        opt_h = scatter_rows(state.opt_h, idx,
-                             where_tree(act_sub, opt_h, oh_sub))
-        loss_full = torch.zeros(ctx.m, device=loss_h.device)
-        loss_full[idx] = loss_h[-1]
-        ctx.metrics["train_loss_h"] = _active_mean(loss_full, ctx.active)
+        new_h, opt_h, loss_h = train_rows(
+            ctx, lambda h, e, o, b, **kw: steps.phase_h(e, h, o, b, **kw),
+            state.header, state.extractor, state.opt_h, "h",
+            fl.epochs_header * steps_per_epoch, fl.batch_size,
+            in_place=in_place)
+        ctx.metrics["train_loss_h"] = _sampled_mean(loss_h[-1], ctx)
         return state._replace(header=new_h, opt_h=opt_h)
 
     def update_context(state: PopulationState, ctx: RoundContext):

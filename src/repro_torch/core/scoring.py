@@ -16,8 +16,9 @@ from repro_torch.core.selection import NEG
 from repro_torch.kernels import ops
 from repro_torch.kernels.peer_score import gram_to_cosine
 from repro_torch.kernels.ref import inverse_norms, recency, stable_topk
+from repro_torch.core.client_state import client_rows
 from repro_torch.models import model as model_mod
-from repro_torch.utils.pytree import leaf_order
+from repro_torch.utils.pytree import leaf_order, tree_leaves
 
 
 # ---------------------------------------------------------------------------
@@ -25,20 +26,22 @@ from repro_torch.utils.pytree import leaf_order
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def loss_disparity_rows(cfg, stacked_params_rows: dict, probe_batches: dict):
+def loss_disparity_rows(cfg, stacked_params_rows, probe_batches: dict, *,
+                        rows=None):
     """L[r, j] = eval-loss of row-client r's model on client j's probe.
 
-    stacked_params_rows: dict of (R, ...) tensors (typically the round's
-    sampled clients); probe_batches: dict of (M, B, ...) tensors. Each row
-    model scores all M probes in one forward of M·B images. → (R, M) f32.
-    """
-    r = next(iter(stacked_params_rows.values())).shape[0]
-    rows = []
-    for i in range(r):
-        params = {n: t[i] for n, t in stacked_params_rows.items()}
-        rows.append(model_mod.eval_loss_grouped(
-            cfg, params, probe_batches["images"], probe_batches["labels"]))
-    return torch.stack(rows)
+    stacked_params_rows: a tree of (R, ...) tensors (typically the
+    round's sampled clients); probe_batches: dict of (M, B, ...) tensors.
+    rows: optional ids of the row clients within a whole population's
+    tree (views, no gathered copy). Each row model scores the M probes by
+    `model.eval_loss_probes` (all M in one forward, one forward a probe
+    for the MoE). → (R, M) f32."""
+    if rows is None:
+        rows = range(tree_leaves(stacked_params_rows)[0].shape[0])
+    return torch.stack([
+        model_mod.eval_loss_probes(
+            cfg, client_rows(stacked_params_rows, int(i)), probe_batches)
+        for i in rows])
 
 
 # ---------------------------------------------------------------------------
@@ -51,6 +54,18 @@ def flatten_headers(stacked_header: dict):
     return torch.cat([stacked_header[n].reshape(
         stacked_header[n].shape[0], -1).float()
         for n in leaf_order(stacked_header)], dim=1)
+
+
+def header_gram_tree(stacked_header):
+    """Eq. 7's cosine Gram accumulated leaf by leaf, without the
+    flattened (M, P) matrix: Σ_leaf x_leaf·x_leafᵀ over the reference's
+    leaf order, then `gram_to_cosine`. → (M, M) f32."""
+    raw = None
+    for name in leaf_order(stacked_header):
+        leaf = stacked_header[name]
+        x = leaf.reshape(leaf.shape[0], -1).float()
+        raw = x @ x.T if raw is None else raw + x @ x.T
+    return gram_to_cosine(raw)
 
 
 def header_distance_matrix(headers_flat, *, use_kernel: bool = False):

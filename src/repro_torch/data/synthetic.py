@@ -1,5 +1,6 @@
-"""Synthetic CIFAR stand-in and the paper's pathological partition —
-reference `repro.data.synthetic`.
+"""Synthetic CIFAR stand-in, the paper's pathological partition, and
+federated token streams for the LLM families — reference
+`repro.data.synthetic`.
 
 The draws come from a torch.Generator (images) and numpy's default_rng
 (the partition), so the arrays differ from the reference's; they match it
@@ -92,3 +93,36 @@ def client_datasets_cifar(seed: int, num_clients: int,
     tr = idx_s[:, :, n_te_s:].reshape(m, -1)
     return {"train_x": images[tr], "train_y": labels[tr],
             "test_x": images[te], "test_y": labels[te]}
+
+
+def synth_tokens(seed: int, num_clients: int, vocab_size: int, seq_len: int,
+                 seqs_per_client: int, num_domains: int = 0,
+                 domain_frac: float = 0.7):
+    """Heterogeneous token streams (reference `synth_tokens`). Client c
+    belongs to domain c % D (D = num_domains, or max(2, M // 4)); a domain
+    is a contiguous vocab slice. Each token is drawn from the client's
+    domain slice with probability domain_frac, else from a Zipf-like
+    background (logits −1.1·log rank) over the whole vocab.
+
+    The draws come from a torch.Generator seeded by `seed` (client by
+    client: the domain coin, the domain token, the background token), so
+    the tokens follow the reference's distribution, not its bits; parity
+    tests feed both packages the reference's tokens.
+
+    → tokens (M, n, S) int32 and domains (M,) int32, CPU tensors."""
+    num_domains = num_domains or max(2, num_clients // 4)
+    dom_size = vocab_size // num_domains
+    gen = torch.Generator().manual_seed(seed)
+    domains = torch.arange(num_clients) % num_domains
+    ranks = torch.arange(1, vocab_size + 1, dtype=torch.float32)
+    bg_probs = torch.softmax(-1.1 * torch.log(ranks), dim=0)
+    shape = (seqs_per_client, seq_len)
+    tokens = []
+    for c in range(num_clients):
+        in_dom = torch.rand(shape, generator=gen) < domain_frac
+        dom_tok = int(domains[c]) * dom_size + torch.randint(
+            0, dom_size, shape, generator=gen)
+        bg_tok = torch.multinomial(bg_probs, in_dom.numel(), replacement=True,
+                                   generator=gen).reshape(shape)
+        tokens.append(torch.where(in_dom, dom_tok, bg_tok))
+    return torch.stack(tokens).to(torch.int32), domains.to(torch.int32)

@@ -193,7 +193,7 @@ def build_run(args) -> dict:
     # under attack, report the honest clients' accuracy (what a defense
     # is supposed to protect); the full-M mean otherwise
     eval_mask = None
-    ts = threat_state(threat, fl.num_clients)
+    ts = threat_state(threat, fl.num_clients, device="cpu")  # a host mask
     if ts is not None:
         eval_mask = ~ts.adversaries.numpy()
     return dict(cfg=cfg, fl=fl, rounds=rounds, image_size=img,

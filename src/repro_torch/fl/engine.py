@@ -56,11 +56,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.aggregation import (
+    F32_BLOCK_COLUMNS,
     aggregate_extractors,
     mean_over_active,
     selection_to_weights,
 )
-from repro_torch.core.client_state import stack_trees
+from repro_torch.core.client_state import client_rows, stack_trees
 from repro_torch.core.partial_freeze import make_full_step
 from repro_torch.core.selection import select_peers
 from repro_torch.data.pipeline import (
@@ -75,7 +76,7 @@ from repro_torch.kernels.gossip_mix import (
 )
 from repro_torch.models.split import merge_params, split_params
 from repro_torch.obs.timers import annotate, stage_name
-from repro_torch.utils.pytree import tree_map
+from repro_torch.utils.pytree import tree_leaves, tree_map
 
 # keys the network generators apart from the strategy's streams (whose
 # positions 0, 1, ... end each stream's seed): the reference's net_key salt
@@ -163,10 +164,30 @@ def scatter_rows(tree, idx, sub):
     return tree_map(put, tree, sub)
 
 
-def client_slice(tree, i):
-    """Client i's entries of a stacked (nested dict) tree."""
-    return {k: (client_slice(v, i) if isinstance(v, dict) else v[i])
-            for k, v in tree.items()}
+def trains_in_place(cfg) -> bool:
+    """Whether a population of `cfg` trains, mixes and masks in place
+    (`train_rows`, `mix_tree(rows=)`, `ops.mask_evolve_leaves(in_place=)`):
+    the LLM families do, at every size, so the route the card takes at
+    full width is the one the CPU tests hold to the reference at reduced
+    width. One copy of an LLM population is as large as the card
+    (qwen2-1.5b at M = 4 holds 14.2 GB of bf16 parameters and 28.4 GB of
+    f32 momenta), so their stages write the population's tensors row by
+    row and a round consumes its input state (rebind it). The cnn keeps
+    the functional stages. Both routes run the same operations on the
+    same values."""
+    return cfg.family != "cnn"
+
+
+def where_rows_(mask_m, new, old):
+    """`where_tree(mask_m, new, old)` written into `new` (a tree the
+    caller owns): rows outside the (M,) mask take `old`'s. → new."""
+    keep = ~mask_m
+
+    def put(n, o):
+        n[keep] = o[keep]
+
+    tree_map(put, new, old)
+    return new
 
 
 def scan_train(apply, carry, data, generator, n_steps: int, batch_size: int,
@@ -201,8 +222,8 @@ def train_sampled(ctx, step, trained, frozen, opt_state, stream: str,
 
     def apply(carry, batch):
         tr, os_ = carry
-        outs = [step(client_slice(tr, i), client_slice(frozen, i),
-                     client_slice(os_, i), client_slice(batch, i))
+        outs = [step(client_rows(tr, i), client_rows(frozen, i),
+                     client_rows(os_, i), client_rows(batch, i))
                 for i in range(ctx.sampled_idx.shape[0])]
         return ((stack_trees([o[0] for o in outs]),
                  stack_trees([o[1] for o in outs])),
@@ -213,6 +234,71 @@ def train_sampled(ctx, step, trained, frozen, opt_state, stream: str,
         n_steps, batch_size, rows=ctx.sampled_rows(), total=ctx.m,
         idx=ctx.draw(stream))
     return new, opt, losses
+
+
+def _train_rows_in_place(ctx, step, trained, frozen, opt_state,
+                         stream: str, n_steps: int, batch_size: int):
+    """`train_rows`' in-place route: the batches are drawn as
+    `train_sampled` draws them (positionally for the sampled rows, or
+    injected). A sampled client that is active has its rows of `trained`
+    and `opt_state` written after each step (`step(..., in_place=True)`);
+    a sampled client that is not trains on copies that are dropped, as
+    the functional route discards its rows. → losses (n_steps, n)."""
+    rows = ctx.sampled_rows().tolist()
+    act = ctx.active[ctx.sampled_idx].cpu().tolist()
+    first = next(iter(ctx.data.values()))
+    drawn = ctx.draw(stream)
+    carries, losses = {}, []
+    for s in range(n_steps):
+        idx = drawn[s] if drawn is not None else sample_client_indices(
+            ctx.streams[stream], len(rows), first.shape[1], batch_size,
+            rows=torch.as_tensor(rows), total=ctx.m)
+        idx = as_index_tensor(idx, first.device)
+        step_losses = []
+        for j, i in enumerate(rows):
+            batch = {k: v[i][idx[j]] for k, v in ctx.data.items()}
+            fro = client_rows(frozen, i)
+            if act[j]:
+                _, _, met = step(client_rows(trained, i), fro,
+                                 client_rows(opt_state, i), batch,
+                                 in_place=True)
+            else:
+                tr, os_ = carries.get(j, (client_rows(trained, i),
+                                          client_rows(opt_state, i)))
+                tr, os_, met = step(tr, fro, os_, batch)
+                carries[j] = (tr, os_)
+            step_losses.append(met["loss"])
+        losses.append(torch.stack(step_losses))
+    return torch.stack(losses)
+
+
+def train_rows(ctx, step, trained, frozen, opt_state, stream: str,
+               n_steps: int, batch_size: int, *, in_place: bool):
+    """Local training of a round's active clients: n_steps of `step` (the
+    `train_sampled` contract, plus `in_place=`) on each sampled row of
+    the population's (M, …) trees `trained` / `frozen` / `opt_state`;
+    the rows of clients that are not active keep their values.
+    → (trained, opt_state, losses (n_steps, n)).
+
+    in_place (`trains_in_place`): the active rows are written into
+    `trained`'s and `opt_state`'s own tensors, which are returned, so the
+    caller's input state is consumed. Otherwise the sampled rows are
+    gathered, trained and scattered into new trees. Both routes run the
+    same operations on the same values: bit for bit equal wherever the
+    step's kernels are deterministic (on one CPU thread; the CPU's
+    embedding backward sums in thread order)."""
+    if in_place:
+        losses = _train_rows_in_place(ctx, step, trained, frozen, opt_state,
+                                      stream, n_steps, batch_size)
+        return trained, opt_state, losses
+    idx = ctx.sampled_idx
+    t_sub, f_sub, o_sub = gather_rows((trained, frozen, opt_state), idx)
+    new_t, new_o, losses = train_sampled(ctx, step, t_sub, f_sub, o_sub,
+                                         stream, n_steps, batch_size)
+    act_sub = ctx.active[idx]
+    return (scatter_rows(trained, idx, where_tree(act_sub, new_t, t_sub)),
+            scatter_rows(opt_state, idx, where_tree(act_sub, new_o, o_sub)),
+            losses)
 
 
 def gossip_edges(uniform, k: int, *, directed: bool, cand=None):
@@ -691,26 +777,21 @@ def stage_plan_gossip(fl, *, directed: bool, stream: str = "nbr",
 def stage_train_full(cfg, fl, opt, n_steps: int, *, stream: str = "train"):
     """Full-model local SGD on dict states ({"params", "opt", ...}): only
     the sampled rows train, one client at a time; inactive clients keep
-    params and optimizer state. `train_loss` is the mean last-step loss
-    over the sampled rows."""
+    params and optimizer state (`train_rows`, in place where
+    `trains_in_place`). `train_loss` is the mean last-step loss over the
+    sampled rows."""
     step = make_full_step(cfg, opt)
+    in_place = trains_in_place(cfg)
 
-    def full_step(params, _frozen, opt_state, batch):
-        return step(params, opt_state, batch)
+    def full_step(params, _frozen, opt_state, batch, **kw):
+        return step(params, opt_state, batch, **kw)
 
     def local_train(state, ctx):
-        idx = ctx.sampled_idx
-        params, opt_state = state["params"], state["opt"]
-        p_sub, o_sub = gather_rows((params, opt_state), idx)
-        new_p, new_o, losses = train_sampled(
-            ctx, full_step, p_sub, {}, o_sub, stream, n_steps,
-            fl.batch_size)
-        act_sub = ctx.active[idx]
-        new_p = scatter_rows(params, idx, where_tree(act_sub, new_p, p_sub))
-        new_o = scatter_rows(opt_state, idx,
-                             where_tree(act_sub, new_o, o_sub))
+        params, opt_state, losses = train_rows(
+            ctx, full_step, state["params"], {}, state["opt"], stream,
+            n_steps, fl.batch_size, in_place=in_place)
         ctx.metrics["train_loss"] = losses[-1].mean()
-        return {**state, "params": new_p, "opt": new_o}
+        return {**state, "params": params, "opt": opt_state}
 
     return local_train
 
@@ -739,39 +820,67 @@ def stage_star_average(cfg, *, share: str, reducer=None):
     return aggregate_star
 
 
-def _pack_clients(tree: dict, m: int):
-    """Flatten every (M, ...) leaf to (M, ·) float32 and concatenate →
-    (M, P) (the columns follow the dict's order)."""
-    return torch.cat([leaf.reshape(m, -1).float() for leaf in tree.values()],
-                     dim=1)
+def mix_blocks(widths, budget: int) -> list:
+    """Cut leaves of `widths` columns (in order) into blocks of at most
+    `budget` columns: each block a list of (leaf, first column, end
+    column) segments; a leaf wider than the budget spans blocks."""
+    blocks, cur, used = [], [], 0
+    for li, width in enumerate(widths):
+        c0 = 0
+        while c0 < width:
+            take = min(width - c0, budget - used)
+            cur.append((li, c0, c0 + take))
+            used += take
+            c0 += take
+            if used == budget:
+                blocks.append(cur)
+                cur, used = [], 0
+    if cur:
+        blocks.append(cur)
+    return blocks
 
 
-def _unpack_clients(flat, tree: dict, m: int) -> dict:
-    """Inverse of `_pack_clients`: slice (M, P) back into `tree`'s leaves,
-    each cast back to its dtype."""
-    out, off = {}, 0
-    for name, leaf in tree.items():
-        size = leaf.numel() // m
-        out[name] = flat[:, off:off + size].reshape(leaf.shape).to(
-            leaf.dtype)
-        off += size
-    return out
+def mix_tree(tree, plan: ExchangePlan, m: int, *, rows=None):
+    """Row-stochastic mixing of a leading-M tree by an ExchangePlan. With
+    the plan's neighbour lists: the leaves packed as (M, P) f32 columns,
+    one `gossip_mix` call per block of at most F32_BLOCK_COLUMNS columns
+    (`mix_blocks`; an output column depends only on its own column's
+    inputs, in slot order, so the blocks' result is bitwise the whole
+    packed call's). Else the dense per-leaf mix.
 
-
-def mix_tree(tree: dict, plan: ExchangePlan, m: int) -> dict:
-    """Row-stochastic mixing of a leading-M tree by an ExchangePlan: one
-    `gossip_mix` call over all leaves packed into (M, P) when the plan
-    carries neighbour lists, else the dense per-leaf mix."""
-    if plan.nbr_idx is not None:
-        mixed = kernel_ops.gossip_mix(_pack_clients(tree, m), plan.nbr_idx,
-                                      plan.nbr_w)
-        return _unpack_clients(mixed, tree, m)
-    return aggregate_extractors(tree, plan.weights)
+    rows: None → a new tree. An (M,) bool mask → the mixed rows of those
+    clients written into `tree`'s own tensors (the in-place path of
+    `trains_in_place`; every block is read whole before it is written),
+    and `tree` returned."""
+    leaves = tree_leaves(tree)
+    if plan.nbr_idx is None:
+        mixed = aggregate_extractors(tree, plan.weights)
+        return mixed if rows is None else where_rows_(~rows, tree, mixed)
+    outs = leaves if rows is not None else [torch.empty_like(x)
+                                            for x in leaves]
+    src = [x.reshape(m, -1) for x in leaves]
+    dst = [x.reshape(m, -1) for x in outs]
+    for block in mix_blocks([x.shape[1] for x in src], F32_BLOCK_COLUMNS):
+        packed = torch.cat([src[li][:, c0:c1].float()
+                            for li, c0, c1 in block], dim=1)
+        mixed = kernel_ops.gossip_mix(packed, plan.nbr_idx, plan.nbr_w)
+        del packed
+        off = 0
+        for li, c0, c1 in block:
+            part = mixed[:, off:off + c1 - c0].to(outs[li].dtype)
+            if rows is None:
+                dst[li][:, c0:c1] = part
+            else:
+                dst[li][rows, c0:c1] = part[rows]
+            off += c1 - c0
+    it = iter(outs)
+    return tree_map(lambda _: next(it), tree)
 
 
 def stage_mix(cfg, *, share: str, mixer=None):
     """Gossip step: mix the shared partition ("model" or "extractor") by
-    the plan (`mix_tree`); inactive clients keep their model.
+    the plan (`mix_tree`; in place where `trains_in_place`); inactive
+    clients keep their model.
 
     mixer: a drop-in replacement for `mix_tree` with its `(tree, plan, m)
     -> tree` contract, the hook the robust per-row aggregators of
@@ -779,16 +888,17 @@ def stage_mix(cfg, *, share: str, mixer=None):
     `weights`, so a packed plan's lists go unused). None keeps the plain
     mix bit for bit."""
     mix = mix_tree if mixer is None else mixer
+    in_place = mixer is None and trains_in_place(cfg)
 
     def aggregate_mix(state, ctx):
         params, active = state["params"], ctx.plan.active
-        if share == "model":
-            mixed = where_tree(active, mix(params, ctx.plan, ctx.m), params)
+        part, rest = ((params, {}) if share == "model"
+                      else split_params(cfg, params))
+        if in_place:
+            mixed = mix_tree(part, ctx.plan, ctx.m, rows=active)
         else:
-            e, h = split_params(cfg, params)
-            mixed_e = where_tree(active, mix(e, ctx.plan, ctx.m), e)
-            mixed = merge_params(mixed_e, h)
-        return {**state, "params": mixed}
+            mixed = where_tree(active, mix(part, ctx.plan, ctx.m), part)
+        return {**state, "params": merge_params(mixed, rest)}
 
     return aggregate_mix
 

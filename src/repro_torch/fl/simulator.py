@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.comms.transport import payload_bytes_per_client
-from repro_torch.core.client_state import stack_trees
+from repro_torch.core.client_state import client_rows, stack_trees
 from repro_torch.core.partial_freeze import make_phase_steps
 from repro_torch.data.pipeline import as_index_tensor
 from repro_torch.device import resolve_device
@@ -78,13 +78,22 @@ FT_STREAM_KEY = 1 << 20   # keys eval-time fine-tune draws apart from rounds
 PROFILE_STREAM_KEY = 1 << 21   # keys the stage profile's rounds apart
 
 
+def _batch_for(cfg, x, y) -> dict:
+    """A batch of `cfg`'s family: {"images", "labels"} for the cnn,
+    {"tokens"} for an LLM (y unused: next-token targets)."""
+    if cfg.family == "cnn":
+        return {"images": x, "labels": y}
+    return {"tokens": x}
+
+
 @torch.no_grad()
-def evaluate_population(cfg, params: dict, test_x, test_y):
-    """Mean + per-client personalized test accuracy. params: leading-M."""
+def evaluate_population(cfg, params, test_x, test_y):
+    """Mean + per-client personalized test accuracy (next-token accuracy
+    for an LLM). params: leading-M."""
     m = test_x.shape[0]
     accs = torch.stack([
-        model_mod.accuracy(cfg, {n: t[i] for n, t in params.items()},
-                           {"images": test_x[i], "labels": test_y[i]})
+        model_mod.accuracy(cfg, client_rows(params, i),
+                           _batch_for(cfg, test_x[i], test_y[i]))
         for i in range(m)])
     return accs.mean(), accs
 
@@ -105,12 +114,12 @@ def _finetune_heads(cfg, fl, params: dict, train_x, train_y, generator,
     idx = as_index_tensor(idx, train_x.device)
     out = []
     for i in range(m):
-        e, h = split_params(cfg, {k: v[i] for k, v in params.items()})
+        e, h = split_params(cfg, client_rows(params, i))
         o = opt.init(h)
         for s in range(steps):
             b = idx[s, i]
-            h, o, _ = phase.phase_h(e, h, o, {"images": train_x[i][b],
-                                              "labels": train_y[i][b]})
+            h, o, _ = phase.phase_h(e, h, o, _batch_for(
+                cfg, train_x[i][b], train_y[i][b]))
         out.append(merge_params(e, h))
     return stack_trees(out)
 
@@ -235,7 +244,9 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
                    trace_edges: bool = False, chunk_rounds: int = 1,
                    eval_mask=None) -> History:
     """data: dict(train_x, train_y, test_x, test_y), leading-M stacked
-    (tensors or numpy arrays; moved to `device`).
+    (tensors or numpy arrays; moved to `device`): images and labels for
+    the cnn, token sequences (M, N, S) for an LLM (train_y / test_y
+    unused; `launch.train.build_data`).
 
     on_round: optional `(round_index, metrics) -> None`, called after
     each round with the round's metrics dict (arrays included, e.g.
@@ -275,7 +286,7 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
     strat = make_strategy(strategy_name, cfg, fl, steps_per_epoch,
                           device=device)
     data = {k: torch.as_tensor(v).to(device) for k, v in data.items()}
-    train_data = {"images": data["train_x"], "labels": data["train_y"]}
+    train_data = _batch_for(cfg, data["train_x"], data["train_y"])
     state = strat.init(seed)
 
     payload = _message_bytes(strat, cfg, fl, state)
@@ -296,10 +307,10 @@ def run_experiment(strategy_name: str, cfg, fl, data: dict, *,
             strategy=strategy_name, num_clients=fl.num_clients,
             num_rounds=num_rounds, seed=seed, family=cfg.family,
             eval_every=eval_every))
-        ts = threat_state(fl.threat, fl.num_clients)
+        ts = threat_state(fl.threat, fl.num_clients, device)
         graph = SelectionGraph(
             fl.num_clients, adversaries=None if ts is None
-            else ts.adversaries.numpy())
+            else ts.adversaries.cpu().numpy())
         if trace_stages:
             tracer.write(stage_profile_record(_profile_stages(
                 strat, fl, train_data, seed)))

@@ -73,7 +73,8 @@ import torch
 
 from repro_torch.comms.fabric import make_fabric
 from repro_torch.comms.topology import topology_degree_bound
-from repro_torch.core.client_state import init_population, stack_trees
+from repro_torch.core.client_state import (client_rows, init_population,
+                                          stack_built)
 from repro_torch.core.partial_freeze import make_phase_steps
 from repro_torch.core.rounds import PFEDDST_STREAMS, make_pfeddst_stages
 from repro_torch.device import resolve_device
@@ -84,27 +85,25 @@ from repro_torch.fl.hetero import (
 )
 from repro_torch.fl.engine import (
     StrategySpec,
-    client_slice,
     device_generator,
-    gather_rows,
     make_round,
     named_streams,
-    scatter_rows,
     stage_bump_round,
     stage_mix,
     stage_plan_gossip,
     stage_plan_star,
     stage_star_average,
     stage_train_full,
-    train_sampled,
-    where_tree,
+    train_rows,
+    trains_in_place,
 )
 from repro_torch.kernels import ops
 from repro_torch.models import model as model_mod
 from repro_torch.models.split import merge_params, split_params
 from repro_torch.openworld import make_open_spec, robust_mixer, star_reducer
 from repro_torch.optim.sgd import sgd
-from repro_torch.utils.pytree import leaf_order
+from repro_torch.utils.pytree import (named_leaves, tree_map,
+                                      tree_unflatten_paths)
 
 CENTRAL = ("fedavg", "fedper", "fedbabu")
 GOSSIP = ("dfedavgm", "dispfl", "dfedpgp")
@@ -163,15 +162,16 @@ class Strategy:
 # shared init
 # ---------------------------------------------------------------------------
 
-def _init_clients(cfg, seed: int, m: int, device) -> list:
-    """M independent random inits, drawn in order from one generator."""
+def _init_clients(cfg, seed: int, m: int, device):
+    """M independent random inits, drawn in order from one generator,
+    stacked."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return [model_mod.init_params(cfg, gen, device) for _ in range(m)]
+    return stack_built(lambda i: model_mod.init_params(cfg, gen, device), m)
 
 
-def _init_opt(opt, params: dict, m: int):
+def _init_opt(opt, params, m: int):
     """Per-client optimizer states of stacked params, stacked."""
-    return stack_trees([opt.init(client_slice(params, i)) for i in range(m)])
+    return stack_built(lambda i: opt.init(client_rows(params, i)), m)
 
 
 # ---------------------------------------------------------------------------
@@ -183,25 +183,20 @@ def _init_broadcast(cfg, seed: int, m: int, device) -> dict:
     included; fedper's diverge through local training."""
     first = model_mod.init_params(
         cfg, torch.Generator(device=device).manual_seed(seed), device)
-    return {n: t.expand((m,) + t.shape).clone() for n, t in first.items()}
+    return tree_map(lambda t: t.expand((m,) + t.shape).clone(), first)
 
 
 def stage_train_babu(cfg, fl, opt, n_steps: int, *, stream: str = "train"):
     """FedBABU local training: phase-e steps (header frozen) on the
     sampled rows; the optimizer state covers the extractor only."""
     phase = make_phase_steps(cfg, opt)
+    in_place = trains_in_place(cfg)
 
     def local_train_babu(state, ctx):
-        idx = ctx.sampled_idx
         e, h = split_params(cfg, state["params"])
-        e_sub, h_sub, o_sub = gather_rows((e, h, state["opt"]["e"]), idx)
-        new_e, opt_e, losses = train_sampled(
-            ctx, phase.phase_e, e_sub, h_sub, o_sub, stream, n_steps,
-            fl.batch_size)
-        act_sub = ctx.active[idx]
-        new_e = scatter_rows(e, idx, where_tree(act_sub, new_e, e_sub))
-        opt_e = scatter_rows(state["opt"]["e"], idx,
-                             where_tree(act_sub, opt_e, o_sub))
+        new_e, opt_e, losses = train_rows(
+            ctx, phase.phase_e, e, h, state["opt"]["e"], stream, n_steps,
+            fl.batch_size, in_place=in_place)
         ctx.metrics["train_loss"] = losses[-1].mean()
         return {**state, "params": merge_params(new_e, h),
                 "opt": {"e": opt_e}}
@@ -243,39 +238,43 @@ def _central_spec(cfg, fl, steps_per_epoch: int, kind: str, device):
 # decentralized gossip family (dfedavgm / dfedpgp / dispfl)
 # ---------------------------------------------------------------------------
 
-def stage_apply_masks():
+def stage_apply_masks(*, in_place: bool = False):
     """DisPFL: project each client's params onto its sparse mask before
-    local training."""
+    local training (into the params' own tensors with `in_place`)."""
 
     def apply_masks(state, ctx):
-        params = {n: p * state["mask"][n].to(p.dtype)
-                  for n, p in state["params"].items()}
+        if in_place:
+            tree_map(lambda p, mk: p.mul_(mk.to(p.dtype)), state["params"],
+                     state["mask"])
+            return state
+        params = tree_map(lambda p, mk: p * mk.to(p.dtype), state["params"],
+                          state["mask"])
         return {**state, "params": params}
 
     return apply_masks
 
 
-def stage_evolve_masks(fl, *, stream: str = "grow"):
+def stage_evolve_masks(fl, *, stream: str = "grow", in_place: bool = False):
     """DisPFL mask evolution of every leaf in one `kernels.ops.
     mask_evolve_leaves` call: prune each stacked (M, …) leaf back to its
     `keep` largest magnitudes — one threshold over all M clients' copies,
     as in the reference — regrow where the leaf's bool plane is set
     (uniform > 1 − fl.dispfl_regrow), re-project. The planes come from
-    `ctx.draws[stream]` by leaf name, or else from a generator on the
-    leaves' device, all drawn first, in the reference's leaf order."""
+    `ctx.draws[stream]` by leaf name (`utils.pytree.named_leaves`), or
+    else from a generator on the leaves' device, all drawn first, in the
+    reference's leaf order. in_place: the evolved leaves are written into
+    the params' tensors and the masks into the planes."""
     sparsity, regrow = fl.dispfl_sparsity, fl.dispfl_regrow
 
     def evolve_masks(state, ctx):
         params = state["params"]
+        items = named_leaves(params)
         planes = ctx.draw(stream)
         gen = None
         if planes is None:
-            device = next(iter(params.values())).device
-            gen = device_generator(ctx.streams[stream], device)
-        names = leaf_order(params)
+            gen = device_generator(ctx.streams[stream], items[0][1].device)
         grows = []
-        for name in names:
-            leaf = params[name]
+        for name, leaf in items:
             if gen is None:
                 grown = planes[name]
                 if not isinstance(grown, torch.Tensor):
@@ -285,13 +284,15 @@ def stage_evolve_masks(fl, *, stream: str = "grow"):
                 grows.append(torch.rand(leaf.shape, generator=gen,
                                         device=leaf.device)
                              > (1.0 - regrow))
-        keeps = [max(int(params[n].numel() * (1 - sparsity)), 1)
-                 for n in names]
-        done = dict(zip(names, ops.mask_evolve_leaves(
-            [params[n] for n in names], grows, keeps)))
+        keeps = [max(int(leaf.numel() * (1 - sparsity)), 1)
+                 for _, leaf in items]
+        done = dict(zip((n for n, _ in items), ops.mask_evolve_leaves(
+            [leaf for _, leaf in items], grows, keeps, in_place=in_place)))
         return {**state,
-                "params": {n: done[n][0] for n in params},
-                "mask": {n: done[n][1] for n in params}}
+                "params": tree_unflatten_paths(params,
+                                               lambda n, _: done[n][0]),
+                "mask": tree_unflatten_paths(params,
+                                             lambda n, _: done[n][1])}
 
     return evolve_masks
 
@@ -305,18 +306,18 @@ def _gossip_spec(cfg, fl, steps_per_epoch: int, kind: str, device):
     n_steps = fl.epochs_extractor * steps_per_epoch
 
     def init(seed: int):
-        params = stack_trees(_init_clients(cfg, seed, fl.num_clients,
-                                           device))
+        params = _init_clients(cfg, seed, fl.num_clients, device)
         state = {"params": params,
                  "opt": _init_opt(opt, params, fl.num_clients),
                  "round": torch.zeros((), dtype=torch.int32)}
         if kind == "dispfl":
             gen = device_generator(named_streams(
                 (seed, MASK_SEED_SALT), ("mask",))["mask"], device)
-            masks = {n: torch.rand(params[n].shape, generator=gen,
+            masks = {n: torch.rand(leaf.shape, generator=gen,
                                    device=device) > fl.dispfl_sparsity
-                     for n in leaf_order(params)}
-            state["mask"] = {n: masks[n] for n in params}
+                     for n, leaf in named_leaves(params)}
+            state["mask"] = tree_unflatten_paths(params,
+                                                 lambda n, _: masks[n])
         return state
 
     share = "model" if kind == "dfedavgm" else "extractor"
@@ -325,7 +326,9 @@ def _gossip_spec(cfg, fl, steps_per_epoch: int, kind: str, device):
               stage_train_full(cfg, fl, opt, n_steps),
               stage_mix(cfg, share=share, mixer=robust_mixer(fl.threat)))
     if kind == "dispfl":
-        stages = (stage_apply_masks(),) + stages + (stage_evolve_masks(fl),)
+        in_place = trains_in_place(cfg)
+        stages = ((stage_apply_masks(in_place=in_place),) + stages
+                  + (stage_evolve_masks(fl, in_place=in_place),))
     return StrategySpec(
         name=kind, init=init, stages=stages + (stage_bump_round(),),
         params_for_eval=_dict_params, key_streams=GOSSIP_STREAMS,

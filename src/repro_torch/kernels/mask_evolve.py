@@ -116,12 +116,21 @@ def check_leaf(x, grow, keep: int, device=None):
     check_keep(keep, x.numel())
 
 
-def mask_evolve_leaves_cuda(leaves, grows, keeps):
+def mask_evolve_leaves_cuda(leaves, grows, keeps, *, outs=None,
+                            masks=None):
     """The CUDA kernel over a list of leaves in one call: leaf i keeps its
     keeps[i] largest |x| and regrows where grows[i]. Every leaf float32
     or bfloat16, its grow plane bool of the same shape, all contiguous on
     one CUDA device. → [(x·mask in x.dtype, mask bool, thr 0-d float32)]
     in the leaves' order, each bitwise equal to `mask_evolve_plain`.
+    outs / masks: where given, the tensors written (they may be the
+    leaves and the grow planes themselves: the apply reads x[i] and
+    grow[i] before it writes out[i] and mask[i], in the same thread,
+    after every histogram pass); else new ones.
+
+    Element indices and counts are 64-bit in the kernel (a leaf's n and
+    target, the chunk loops), so a client-stacked leaf may pass 2³¹
+    elements.
 
     One launch per radix pass (4 with a float32 leaf, else 2) and one
     apply, whatever the number of leaves; no host synchronisation."""
@@ -136,9 +145,11 @@ def mask_evolve_leaves_cuda(leaves, grows, keeps):
     dev = leaves[0].device if isinstance(leaves[0], torch.Tensor) else None
     for x, grow, keep in zip(leaves, grows, keeps):
         check_leaf(x, grow, keep, dev)
-    outs = [torch.empty_like(x) for x in leaves]
-    masks = [torch.empty(x.shape, dtype=torch.bool, device=dev)
-             for x in leaves]
+    if outs is None:
+        outs = [torch.empty_like(x) for x in leaves]
+    if masks is None:
+        masks = [torch.empty(x.shape, dtype=torch.bool, device=dev)
+                 for x in leaves]
     order, begins, grid, grid_deep = leaf_plan(
         [x.numel() for x in leaves], [x.dtype for x in leaves])
     rows = [[leaves[i].data_ptr(), grows[i].data_ptr(), outs[i].data_ptr(),

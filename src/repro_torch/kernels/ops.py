@@ -125,21 +125,36 @@ def mask_evolve(x, grow, *, keep: int, impl: str | None = None):
     return mask_evolve_leaves([x], [grow], [keep], impl=impl)[0]
 
 
-def mask_evolve_leaves(leaves, grows, keeps, *, impl: str | None = None):
+def mask_evolve_leaves(leaves, grows, keeps, *, impl: str | None = None,
+                       in_place: bool = False):
     """`mask_evolve` over a list of leaves (a round's), leaf i with
     grows[i] and keeps[i] → [(x·mask in x.dtype, mask bool)]. On the card
     one kernel call covers every leaf; the plain route loops over
-    `mask_evolve_plain`. Every route agrees bitwise."""
+    `mask_evolve_plain`. Every route agrees bitwise. in_place: each
+    x·mask is written into its leaf and each mask into its grow plane
+    (contiguous bool tensors the caller owns), which are returned."""
     if not leaves:
         return []
     if _route(leaves[0], impl) == "cuda":
+        xs = [x.contiguous() for x in leaves]
+        gs = [g.bool().contiguous() for g in grows]
+        if in_place and any(a.data_ptr() != b.data_ptr() for a, b in
+                            zip(xs + gs, list(leaves) + list(grows))):
+            raise ValueError("in_place needs contiguous leaves and bool "
+                             "grow planes")
         done = _me.mask_evolve_leaves_cuda(
-            [x.contiguous() for x in leaves],
-            [g.bool().contiguous() for g in grows], keeps)
-    else:
-        done = [_me.mask_evolve_plain(x, g, keep=k)
-                for x, g, k in zip(leaves, grows, keeps)]
-    return [(out, mask) for out, mask, _ in done]
+            xs, gs, keeps, outs=xs if in_place else None,
+            masks=gs if in_place else None)
+        return [(out, mask) for out, mask, _ in done]
+    out = []
+    for x, g, k in zip(leaves, grows, keeps):
+        y, mask, _ = _me.mask_evolve_plain(x, g, keep=k)
+        if in_place:
+            x.copy_(y)
+            g.copy_(mask)
+            y, mask = x, g
+        out.append((y, mask))
+    return out
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

@@ -34,6 +34,19 @@ def raw_gram_plain(x):
     return xf @ xf.T
 
 
+# the kernels index a row's columns with 32-bit ints (a slice's start plus
+# a 32-column step); the largest LLM header, deepseek-v3's final_norm +
+# lm_head, is 926,686,208 wide
+MAX_WIDTH = 2 ** 31 - 64
+
+
+def check_width(p: int):
+    """Raise unless a row of P columns is within MAX_WIDTH."""
+    if p > MAX_WIDTH:
+        raise ValueError(f"the kernels take at most {MAX_WIDTH} columns a "
+                         f"row, got P={p}")
+
+
 def check_cuda_matrix(name: str, t, dtype, shape=None, device=None):
     """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and of
     `shape` / on `device` when given) — what the kernels take."""
@@ -85,6 +98,7 @@ def raw_gram_cuda(x):
         raise ValueError(f"x must be a non-empty (M, P) matrix, got "
                          f"{tuple(x.shape)}")
     m, p = x.shape
+    check_width(p)
     tile, splits, chunk = plan = gram_split_plan(m, p)
     out = torch.empty((m, m), dtype=torch.float32, device=x.device)
     work = (torch.empty((splits, m, m), dtype=torch.float32,

@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.peer_score import (MIN_SPLIT_P, SMS,
-                                            check_cuda_matrix)
+                                            check_cuda_matrix, check_width)
 
 MAX_K = 32                 # the CUDA kernel's per-row carry width
 TILE_M, TILE_N = 128, 128  # the kernel's Gram tile: rows × columns
@@ -92,6 +92,7 @@ def select_topk_cuda(x, last_selected, s_l, t, cost, candidate_mask=None,
         raise ValueError(f"x must be an (M, P) matrix, got {tuple(x.shape)}")
     m, p = x.shape
     check_k(k, m)
+    check_width(p)
     if k > MAX_K:
         raise ValueError(f"the select_topk kernel takes k <= {MAX_K}, "
                          f"got k={k}")

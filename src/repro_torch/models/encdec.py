@@ -15,8 +15,9 @@ projects each decoder layer's cross k/v; the decoder's self-attention
 cache starts at zeros. The reference's `model.prefill` returns that cache
 and takes only the logits from `encdec_forward`, so decoding from
 position S attends over S zero slots; the port does the same (ROADMAP §3,
-reference conditions). Training (`encdec_forward`'s aux dict, remat) is
-not ported (ROADMAP queue 1 item 12).
+reference conditions). `encdec_forward` is the teacher-forced training
+forward, → (logits, aux); `remat` recomputes each encoder and decoder
+layer in the backward.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (dense_init, embed_lookup, init_embed,
                                        mlp, rms_norm, torch_dtype)
-from repro_torch.models.transformer import layer_at
+from repro_torch.models.transformer import layer_at, run_layer, zero_aux
 
 
 def _init_mlp(generator, cfg, device, depth_scale, lead):
@@ -88,42 +89,51 @@ def init_encdec(generator, cfg, device) -> dict:
     }
 
 
-def encode(params, frames, cfg, *, backend="auto"):
+def _encoder_layer(layer, x, positions, cfg, backend):
+    h = rms_norm(x, layer["ln1"], cfg.norm_eps)
+    x = x + attn_mod.attention_layer(layer["attn"], h, positions, cfg,
+                                     causal=False, backend=backend)
+    return x + mlp(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps),
+                   act=cfg.act)
+
+
+def encode(params, frames, cfg, *, backend="auto", remat: bool = False):
     """frames (B, Se, D) stub embeddings → encoder output (B, Se, D):
     bidirectional (non-causal) attention at every layer."""
     x = frames.to(torch_dtype(cfg.dtype))
     positions = torch.arange(x.shape[1], device=x.device)[None]
     for i in range(cfg.encoder_layers):
-        layer = layer_at(params["encoder"], i)
-        h = rms_norm(x, layer["ln1"], cfg.norm_eps)
-        x = x + attn_mod.attention_layer(layer["attn"], h, positions, cfg,
-                                         causal=False, backend=backend)
-        x = x + mlp(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps),
-                    act=cfg.act)
+        x = run_layer(_encoder_layer, remat, layer_at(params["encoder"], i),
+                      x, positions, cfg, backend)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def encdec_forward(params, tokens, frames, cfg, *, backend="auto"):
+def _decoder_layer(layer, x, enc_out, positions, cfg, backend):
+    h = rms_norm(x, layer["ln1"], cfg.norm_eps)
+    x = x + attn_mod.attention_layer(layer["attn"], h, positions, cfg,
+                                     causal=True, backend=backend)
+    h = rms_norm(x, layer["ln_cross"], cfg.norm_eps)
+    ckv = attn_mod.cross_kv_from_encoder(layer["cross"], enc_out, cfg)
+    x = x + attn_mod.attention_layer(layer["cross"], h, positions, cfg,
+                                     cross_kv=ckv, backend=backend)
+    return x + mlp(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps),
+                   act=cfg.act)
+
+
+def encdec_forward(params, tokens, frames, cfg, *, backend="auto",
+                   remat: bool = False):
     """Teacher-forced decoder over tokens (B, S) against the encoded
-    frames → logits (B, S, V). Per decoder layer: causal self-attention,
-    non-causal cross-attention (S queries over Se keys), MLP."""
-    enc_out = encode(params, frames, cfg, backend=backend)
-    s = tokens.shape[1]
+    frames → (logits (B, S, V), aux: both losses 0). Per decoder layer:
+    causal self-attention, non-causal cross-attention (S queries over Se
+    keys), MLP."""
+    enc_out = encode(params, frames, cfg, backend=backend, remat=remat)
     x = embed_lookup(params["embed"], tokens)
-    positions = torch.arange(s, device=tokens.device)[None]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
     for i in range(cfg.num_layers):
-        layer = layer_at(params["layers"], i)
-        h = rms_norm(x, layer["ln1"], cfg.norm_eps)
-        x = x + attn_mod.attention_layer(layer["attn"], h, positions, cfg,
-                                         causal=True, backend=backend)
-        h = rms_norm(x, layer["ln_cross"], cfg.norm_eps)
-        ckv = attn_mod.cross_kv_from_encoder(layer["cross"], enc_out, cfg)
-        x = x + attn_mod.attention_layer(layer["cross"], h, positions, cfg,
-                                         cross_kv=ckv, backend=backend)
-        x = x + mlp(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps),
-                    act=cfg.act)
+        x = run_layer(_decoder_layer, remat, layer_at(params["layers"], i),
+                      x, enc_out, positions, cfg, backend)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"]
+    return x @ params["lm_head"], zero_aux(x.device)
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,8 @@ width), whatever the context: per rec layer the LRU state, per attn layer
 a window-sized ring KV cache written at pos % window. The prefill leaves
 the same ring layout (`_fill_ring`), so decoding continues from it.
 
-The reference's `hybrid_forward` (teacher-forced training, remat) is not
-ported (ROADMAP queue 1 item 12, LLM training).
+`hybrid_forward` is the teacher-forced training forward (`remat`
+recomputes each layer in the backward).
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.layers import (apply_rope, dense_init, embed_lookup,
                                        init_embed, mlp, rms_norm,
                                        torch_dtype)
+from repro_torch.models.transformer import run_layer, zero_aux
 
 
 def init_hybrid_layer(generator, cfg, kind: str, device) -> dict:
@@ -87,6 +88,31 @@ def _fill_ring(k, window: int):
 
 def _head(params, x, cfg):
     return rms_norm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+
+
+def _layer_full(layer, kind, x, cfg, backend):
+    """One layer over a full sequence (training)."""
+    h = rms_norm(x, layer["ln1"], cfg.norm_eps)
+    if kind == "rec":
+        h, _ = rglru_mod.rglru_block(layer["temporal"], h)
+    else:
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        h = attn_mod.attention_layer(layer["temporal"], h, positions, cfg,
+                                     causal=True, window=cfg.window_size,
+                                     backend=backend)
+    x = x + h
+    return x + mlp(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps),
+                   act=cfg.act)
+
+
+def hybrid_forward(params, tokens, cfg, *, backend="auto",
+                   remat: bool = False):
+    """Teacher-forced forward of tokens (B, S) → (logits (B, S, V), aux:
+    both losses 0)."""
+    x = embed_lookup(params["embed"], tokens)
+    for layer, kind in zip(params["layers"], cfg.block_pattern):
+        x = run_layer(_layer_full, remat, layer, kind, x, cfg, backend)
+    return _head(params, x, cfg), zero_aux(x.device)
 
 
 def hybrid_prefill(params, tokens, cfg, *, backend="auto"):

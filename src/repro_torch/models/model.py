@@ -1,13 +1,21 @@
-"""Model API — reference `repro.models.model`: the cnn branch, the
-serving branches of the LLM families, and the analytic parameter count.
+"""Model API — reference `repro.models.model`: family dispatch for init,
+the training forward and losses, serving, and the analytic parameter
+count.
 
 batch dicts: cnn {"images": (B, H, W, C), "labels": (B,) int}; the LLM
-families {"tokens": (B, S) int}, and for the audio family also
-{"frames": (B, encoder_seq, d_model)}. The cnn trains (forward, losses);
-every LLM family serves (init_cache, prefill, decode_step): dense, moe,
-vlm (text tokens only, as the reference's `prefill`), ssm, hybrid and
-audio. LLM training is not ported (ROADMAP queue 1 item 12).
-`count_params` covers every family.
+families {"tokens": (B, S) int}, the vlm family optionally with
+{"prefix_embeds": (B, P, D)}, the audio family with {"frames": (B,
+encoder_seq, d_model)}. Every family trains (forward, loss_fn,
+eval_loss, accuracy): the LLM loss is next-token cross-entropy over the
+text positions (a prefix's positions are cut off), plus the MoE aux
+losses weighted by AUX_WEIGHTS. Every LLM family serves (init_cache,
+prefill, decode_step): dense, moe, vlm (text tokens only, as the
+reference's `prefill`), ssm, hybrid and audio. `count_params` covers
+every family.
+
+backend: "auto" (attention: "naive" up to 4096² scores, else
+"chunked"; rwkv: the per-token recurrence), "naive", "chunked" or
+"flash" (the kernels: forward only, they have no backward).
 """
 from __future__ import annotations
 
@@ -20,11 +28,7 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.layers import cross_entropy_loss, per_example_nll
 
-def _check_family(cfg):
-    if cfg.family != "cnn":
-        raise NotImplementedError(
-            f"training of the {cfg.family!r} family is not ported "
-            "(ROADMAP queue 1 item 12)")
+AUX_WEIGHTS = {"load_balance": 0.01, "router_z": 0.001}
 
 
 def _check_serving(cfg):
@@ -36,7 +40,6 @@ def init_params(cfg, generator: torch.Generator, device) -> dict:
     """Random parameters drawn from `generator` on `device`."""
     if cfg.family == "cnn":
         return cnn_mod.init_cnn(cfg, generator, device)
-    _check_serving(cfg)
     if cfg.family == "ssm":
         return rwkv_mod.init_rwkv(generator, cfg, device)
     if cfg.family == "hybrid":
@@ -46,38 +49,97 @@ def init_params(cfg, generator: torch.Generator, device) -> dict:
     return tf_mod.init_decoder(generator, cfg, device)
 
 
-def forward(cfg, params, batch):
-    """→ logits (B, num_classes) in the parameters' dtype."""
-    _check_family(cfg)
-    return cnn_mod.cnn_forward(params, batch["images"], cfg)
+# ---------------------------------------------------------------------------
+# forward / losses
+# ---------------------------------------------------------------------------
+
+def forward(cfg, params, batch, *, backend="auto", remat=False):
+    """→ (logits, aux). The cnn's logits are (B, num_classes) and its aux
+    empty; an LLM's (B, S_total, V) with aux {load_balance, router_z}."""
+    if cfg.family == "cnn":
+        return cnn_mod.cnn_forward(params, batch["images"], cfg), {}
+    if cfg.family == "ssm":
+        return rwkv_mod.rwkv_forward(params, batch["tokens"], cfg,
+                                     remat=remat,
+                                     wkv_fn=rwkv_mod.wkv_route(backend))
+    if cfg.family == "hybrid":
+        return hybrid_mod.hybrid_forward(params, batch["tokens"], cfg,
+                                         backend=backend, remat=remat)
+    if cfg.family == "audio":
+        return encdec_mod.encdec_forward(params, batch["tokens"],
+                                         batch["frames"], cfg,
+                                         backend=backend, remat=remat)
+    return tf_mod.decoder_forward(params, batch["tokens"], cfg,
+                                  prefix_embeds=batch.get("prefix_embeds"),
+                                  backend=backend, remat=remat)
 
 
-def loss_fn(cfg, params, batch):
-    """→ (loss, metrics dict) — the training objective."""
-    logits = forward(cfg, params, batch)
-    loss = cross_entropy_loss(logits, batch["labels"])
-    acc = (logits.argmax(-1) == batch["labels"]).float().mean()
-    return loss, {"loss": loss, "accuracy": acc}
+def _text_logits(logits, tokens):
+    """The logits that predict text tokens 1..S−1: after a prefix of P
+    positions, text token t+1 is predicted at position P + t."""
+    p = logits.shape[1] - tokens.shape[1]
+    return logits[:, p:p + tokens.shape[1] - 1]
 
 
-def eval_loss(cfg, params, batch):
-    """Pure task loss — the s_l scoring signal (paper Eq. 6)."""
-    return cross_entropy_loss(forward(cfg, params, batch), batch["labels"])
+def loss_fn(cfg, params, batch, *, backend="auto", remat=False):
+    """→ (total, metrics): the objective the training steps differentiate.
+    For an LLM, total = next-token loss + Σ AUX_WEIGHTS[k]·aux[k] and the
+    metrics hold the loss and each aux term; for the cnn, total = the
+    cross-entropy and the metrics hold it and the accuracy."""
+    logits, aux = forward(cfg, params, batch, backend=backend, remat=remat)
+    if cfg.family == "cnn":
+        loss = cross_entropy_loss(logits, batch["labels"])
+        acc = (logits.argmax(-1) == batch["labels"]).float().mean()
+        return loss, {"loss": loss, "accuracy": acc}
+    tokens = batch["tokens"]
+    loss = cross_entropy_loss(_text_logits(logits, tokens), tokens[:, 1:])
+    total, metrics = loss, {"loss": loss}
+    for k, w in AUX_WEIGHTS.items():
+        if k in aux:
+            total = total + w * aux[k]
+            metrics[k] = aux[k]
+    return total, metrics
 
 
-def eval_loss_grouped(cfg, params, images, labels):
-    """Eq. 6 over G probe batches in one forward: images (G, B, H, W, C),
-    labels (G, B) → (G,) per-batch mean losses. Equal to G calls of
-    `eval_loss` (the CNN has no cross-example coupling)."""
-    g, b = labels.shape
-    logits = forward(cfg, params,
-                     {"images": images.reshape((g * b,) + images.shape[2:])})
-    return per_example_nll(logits, labels.reshape(-1)).reshape(g, b).mean(1)
+def eval_loss(cfg, params, batch, *, backend="auto"):
+    """Pure task loss, no aux — the s_l scoring signal (paper Eq. 6)."""
+    logits, _ = forward(cfg, params, batch, backend=backend)
+    if cfg.family == "cnn":
+        return cross_entropy_loss(logits, batch["labels"])
+    tokens = batch["tokens"]
+    return cross_entropy_loss(_text_logits(logits, tokens), tokens[:, 1:])
+
+
+def eval_loss_probes(cfg, params, probes: dict, *, backend="auto"):
+    """Eq. 6 over G probe batches: probes a dict of (G, B, ...) tensors →
+    (G,) per-batch `eval_loss`. Families without coupling across a
+    batch's examples (every one but the MoE) take all G batches in one
+    forward; the MoE's capacity and drops depend on the tokens of the
+    call (`moe.moe_layer`), so it takes one forward per batch, as the
+    reference evaluates each batch alone."""
+    g = next(iter(probes.values())).shape[0]
+    if cfg.num_experts:
+        return torch.stack([eval_loss(cfg, params,
+                                      {k: v[j] for k, v in probes.items()},
+                                      backend=backend) for j in range(g)])
+    flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in probes.items()}
+    logits, _ = forward(cfg, params, flat, backend=backend)
+    if cfg.family == "cnn":
+        nll = per_example_nll(logits, flat["labels"])
+    else:
+        tokens = flat["tokens"]
+        nll = per_example_nll(_text_logits(logits, tokens), tokens[:, 1:])
+    return nll.reshape(g, -1).mean(1)
 
 
 def accuracy(cfg, params, batch):
-    logits = forward(cfg, params, batch)
-    return (logits.argmax(-1) == batch["labels"]).float().mean()
+    """Classification accuracy (cnn) or next-token accuracy (LLM)."""
+    logits, _ = forward(cfg, params, batch)
+    if cfg.family == "cnn":
+        return (logits.argmax(-1) == batch["labels"]).float().mean()
+    tokens = batch["tokens"]
+    pred = _text_logits(logits, tokens).argmax(-1)
+    return (pred == tokens[:, 1:]).float().mean()
 
 
 # ---------------------------------------------------------------------------
@@ -127,8 +189,9 @@ def prefill(cfg, params, batch, *, max_seq: int, backend="flash"):
     if cfg.family == "audio":
         cache = encdec_mod.init_encdec_cache(params, batch["frames"], cfg,
                                              tokens.shape[0], max_seq)
-        logits = encdec_mod.encdec_forward(params, tokens, batch["frames"],
-                                           cfg, backend=backend)
+        logits, _ = encdec_mod.encdec_forward(params, tokens,
+                                              batch["frames"], cfg,
+                                              backend=backend)
         return logits, cache
     return tf_mod.decoder_prefill(params, tokens, cfg, max_seq=max_seq,
                                   backend=backend)

@@ -10,13 +10,14 @@ w_t ∈ (0, 1), per-head WKV state S ∈ (head, hd, hd):
 Channel-mix: squared-ReLU MLP with token-shift. The decode state is O(1)
 in the context: (prev_x, S) per layer.
 
-Prefill with backend="flash" runs the WKV through `kernels.ops.wkv` (the
-CUDA kernel on a card, its plain chunked version on the CPU);
-backend="naive" and decode take the per-token recurrence
-(`kernels.ref.wkv_ref`). The reference's pure-JAX chunked path
-(`wkv_chunked_jax`, backend="chunked") is not ported (ROADMAP queue 1
-item 12). Layers are stacked with a leading L axis; a Python loop walks
-them.
+The WKV routes: backend "flash" runs `kernels.ops.wkv` (the CUDA kernel
+on a card, its plain chunked version on the CPU; no backward, so a
+forward only); "chunked" runs `wkv_chunked_torch`, the reference's
+block-parallel closed form (`wkv_chunked_jax`) in plain PyTorch; "naive"
+and "auto" (training and decode) the per-token recurrence
+(`kernels.ref.wkv_ref`). `rwkv_forward` is the teacher-forced training
+forward (`remat` recomputes each layer in the backward). Layers are
+stacked with a leading L axis; a Python loop walks them.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from repro_torch.kernels.ref import wkv_ref
 from repro_torch.models.layers import (dense_init, embed_lookup, group_norm,
                                        init_embed, normal, rms_norm,
                                        torch_dtype)
-from repro_torch.models.transformer import layer_at
+from repro_torch.models.transformer import layer_at, run_layer, zero_aux
 
 LORA_MIX = 32
 LORA_DECAY = 64
@@ -124,6 +125,95 @@ def _rkvwg(p, x, xprev, cfg):
     return r, k, v, g, w.reshape(B, S, H, hd)
 
 
+def wkv_chunked_torch(r, k, v, w, u, state=None, chunk: int = 512,
+                      sub_chunk: int = 16):
+    """The WKV recurrence in the reference's chunked closed form
+    (`wkv_chunked_jax`), plain PyTorch: a loop over chunks of `chunk`
+    tokens carrying the (B, H, hd, hd) f32 state; inside a chunk,
+    sub-chunk diagonal blocks take the exact decay einsum and the
+    off-diagonal block pairs the factored form (every exponent ≤ 0).
+    Differentiable. r, k, v, w (B, S, H, hd), u (H, hd) → (out in
+    r.dtype, final state f32)."""
+    B, S, H, hd = r.shape
+    dev = r.device
+    s0 = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=dev)
+          if state is None else state.float())
+    c = min(chunk, S)
+    pad = (-S) % c
+    f = [a.float() for a in (r, k, v, w)]
+    if pad:
+        f = [torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad), value=val)
+             for a, val in zip(f, (0.0, 0.0, 0.0, 1.0))]
+    nc = (S + pad) // c
+    rc, kc, vc, wc = (a.reshape(B, nc, c, H, hd) for a in f)
+    uf = u.float()
+    sc = sub_chunk if (sub_chunk and c % sub_chunk == 0 and c > sub_chunk) \
+        else c
+    n = c // sc
+    iota = torch.arange(sc, device=dev)
+    tri_sc = iota[:, None] > iota[None, :]
+    blk = torch.arange(n, device=dev)
+    blk_lower = blk[:, None] > blk[None, :]
+    outs = []
+    for ci in range(nc):
+        rr, kk, vv, ww = rc[:, ci], kc[:, ci], vc[:, ci], wc[:, ci]
+        # the reference's maximum(w, 1e-38), by a select: a clamped w
+        # (underflowed to 0 at full width) gets a zero gradient, where
+        # clamp_min's backward would multiply log's 1/1e-38 by 0 (NaN)
+        lw = torch.log(torch.where(ww > 1e-38, ww, 1e-38))
+        cum = torch.cumsum(lw, dim=1)              # inclusive
+        cum_prev = cum - lw
+        # cross-chunk: (r ⊙ e^{cum_prev}) @ S0
+        o = torch.einsum("bthi,bhij->bthj", rr * torch.exp(cum_prev), s0)
+        # intra-chunk, two-level
+        shp = (B, n, sc, H, hd)
+        r2, k2, v2 = (a.reshape(shp) for a in (rr, kk, vv))
+        cum2, cum_prev2 = cum.reshape(shp), cum_prev.reshape(shp)
+        a_start = cum_prev2[:, :, 0]               # (B, n, H, hd)
+        b_end = cum2[:, :, -1]
+        expo_d = cum_prev2[:, :, :, None] - cum2[:, :, None, :]
+        expo_d = torch.where(tri_sc[None, None, :, :, None, None], expo_d,
+                             float("-inf"))
+        scores_d = torch.einsum("bnthi,bnshi,bntshi->bntsh", r2, k2,
+                                torch.exp(expo_d))
+        o_d = torch.einsum("bntsh,bnshj->bnthj", scores_d, v2)
+        if n > 1:
+            r_hat = r2 * torch.exp(cum_prev2 - a_start[:, :, None])
+            k_hat = k2 * torch.exp(b_end[:, :, None] - cum2)
+            # masked before the exp (the reference masks after it): the
+            # pairs above the diagonal have positive exponents, inf when
+            # decays underflow, and exp's gradient there would be inf · 0
+            m_ij = torch.exp(torch.where(
+                blk_lower[None, :, :, None, None],
+                a_start[:, :, None] - b_end[:, None, :], float("-inf")))
+            rm = torch.einsum("bithc,bijhc->bijthc", r_hat, m_ij)
+            scores_o = torch.einsum("bijthc,bjshc->bijtsh", rm, k_hat)
+            o_d = o_d + torch.einsum("bijtsh,bjshd->bithd", scores_o, v2)
+        o = o + o_d.reshape(rr.shape)
+        # the bonus diagonal
+        diag = torch.einsum("bthi,hi,bthi->bth", rr, uf, kk)
+        o = o + diag[..., None] * vv
+        # state update: every exponent ≤ 0
+        k_dec = kk * torch.exp(cum[:, -1:] - cum)
+        s0 = torch.exp(cum[:, -1])[..., None] * s0 + torch.einsum(
+            "bshi,bshj->bhij", k_dec, vv)
+        outs.append(o)
+    out = torch.stack(outs, dim=1).reshape(B, S + pad, H, hd)[:, :S]
+    return out.to(r.dtype), s0
+
+
+WKV_ROUTES = {"flash": kernel_ops.wkv, "chunked": wkv_chunked_torch,
+              "naive": None, "auto": None}
+
+
+def wkv_route(backend: str):
+    """The WKV function of a backend (None: the per-token recurrence)."""
+    if backend not in WKV_ROUTES:
+        raise ValueError(f"unknown rwkv backend {backend!r} "
+                         f"(use one of {sorted(WKV_ROUTES)})")
+    return WKV_ROUTES[backend]
+
+
 def time_mix(p, x, cfg, *, state=None, wkv_fn=None):
     """Full-sequence time-mix. state: None (fresh) or {"prev_x", "S"}.
     r/k/v go to the WKV in the model dtype, w, u and the state in f32.
@@ -198,6 +288,22 @@ def init_rwkv(generator, cfg, device) -> dict:
     }
 
 
+def _layer_train(layer, x, cfg, wkv_fn):
+    return rwkv_layer(layer, x, cfg, wkv_fn=wkv_fn)[0]
+
+
+def rwkv_forward(params, tokens, cfg, *, remat: bool = False,
+                 wkv_fn=None):
+    """Teacher-forced forward of tokens (B, S) from a fresh state →
+    (logits (B, S, V), aux: both losses 0)."""
+    x = embed_lookup(params["embed"], tokens)
+    for i in range(cfg.num_layers):
+        x = run_layer(_layer_train, remat, layer_at(params["layers"], i), x,
+                      cfg, wkv_fn)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["lm_head"], zero_aux(x.device)
+
+
 def _run_layers(params, x, state, cfg, wkv_fn):
     """Walk the stacked layers; state is the stacked (L, …) decode state,
     rebuilt from the per-layer states."""
@@ -214,15 +320,10 @@ def _run_layers(params, x, state, cfg, wkv_fn):
 
 def rwkv_prefill(params, tokens, cfg, *, backend="flash"):
     """Prompt prefill that returns the decode state: (logits, stacked
-    state). backend "flash" → the chunked WKV kernel route, "naive" → the
+    state). backend "flash" → the chunked WKV kernel route, "chunked" →
+    `wkv_chunked_torch` (and "auto", as in the reference), "naive" → the
     per-token recurrence."""
-    if backend == "flash":
-        wkv_fn = kernel_ops.wkv
-    elif backend == "naive":
-        wkv_fn = None
-    else:
-        raise NotImplementedError(f"rwkv prefill backend {backend!r} is not "
-                                  "ported (ROADMAP queue 1 item 12)")
+    wkv_fn = wkv_route("chunked" if backend == "auto" else backend)
     x = embed_lookup(params["embed"], tokens)
     state = init_rwkv_model_state(cfg, tokens.shape[0], tokens.device)
     return _run_layers(params, x, state, cfg, wkv_fn)

@@ -1,16 +1,18 @@
 """Extractor / header split — the PFedDST partial-personalization cut
 (reference `repro.models.split`).
 
-cnn: header = the "head." leaves (final fc), extractor = stem + stages.
-Both halves keep their full dotted names, so merge is a plain dict union.
+cnn (a flat dict of dotted names): header = the "head." leaves (the
+final fc), extractor = stem + stages. Every LLM family (nested dicts),
+audio included: header = {final_norm, lm_head}, extractor = the rest.
+Both halves keep their full names, so merge is a plain dict union.
 """
 from __future__ import annotations
 
-HEADER_KEYS = {"cnn": ("head",)}
+HEADER_KEYS = {"cnn": ("head",), "default": ("final_norm", "lm_head")}
 
 
 def header_keys(cfg):
-    return HEADER_KEYS[cfg.family]
+    return HEADER_KEYS.get(cfg.family, HEADER_KEYS["default"])
 
 
 def _top(name: str) -> str:

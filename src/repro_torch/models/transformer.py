@@ -8,17 +8,20 @@ Layers are stacked as in the reference — every leaf of
 them (the reference scans). A layer's attention is GQA or, with
 `cfg.use_mla`, MLA; its FFN the gated MLP or, with `cfg.num_experts`,
 `moe.moe_layer` (its aux dict discarded, as the reference's serving
-does). The vlm family's `vision_proj` is initialised and carried; only
-`decoder_forward` with prefix embeddings reads it in the reference, and
-that is the LLM training slice (ROADMAP queue 1 item 12). The
-reference's `constrain_act` is the identity without a mesh and is
-dropped.
+does) in serving; `decoder_forward` (training) sums the MoE aux losses
+over the layers. The vlm family's `vision_proj` is read only by
+`decoder_forward` with prefix embeddings, as in the reference. `remat`
+recomputes each layer in the backward
+(`torch.utils.checkpoint.checkpoint`, non-reentrant), the reference's
+`jax.checkpoint` with nothing saveable. The reference's `constrain_act`
+is the identity without a mesh and is dropped.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -98,6 +101,68 @@ def _ffn(layer, x, cfg):
     if cfg.num_experts:
         return moe_mod.moe_layer(layer["moe"], x, cfg)[0]
     return mlp(layer["mlp"], x, act=cfg.act)
+
+
+def zero_aux(device) -> dict:
+    """The aux dict of a family without a router: both losses 0 (f32)."""
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"load_balance": z, "router_z": z.clone()}
+
+
+def run_layer(fn, remat: bool, *args):
+    """fn(*args), recomputed in the backward when `remat` (the
+    reference's `jax.checkpoint(..., nothing_saveable)` of a layer)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _layer_train(layer, x, cfg, backend):
+    """One decoder layer over a full sequence → (x, aux) with the MoE
+    layer's aux losses in f32 (zeros for the gated MLP)."""
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    h = rms_norm(x, layer["ln1"], cfg.norm_eps)
+    if cfg.use_mla:
+        h = attn_mod.mla_layer(layer["attn"], h, positions, cfg,
+                               backend=backend)
+    else:
+        h = attn_mod.attention_layer(layer["attn"], h, positions, cfg,
+                                     causal=True, backend=backend)
+    x = x + h
+    h = rms_norm(x, layer["ln2"], cfg.norm_eps)
+    if cfg.num_experts:
+        h, aux = moe_mod.moe_layer(layer["moe"], h, cfg)
+        aux = {k: v.float() for k, v in aux.items()}
+    else:
+        h = mlp(layer["mlp"], h, act=cfg.act)
+        aux = zero_aux(x.device)
+    return x + h, aux
+
+
+def sum_aux(auxs: list) -> dict:
+    """The layers' aux dicts summed key by key (the reference sums the
+    scanned (L,) stack)."""
+    return {k: torch.stack([a[k] for a in auxs]).sum() for k in auxs[0]}
+
+
+def decoder_forward(params, tokens, cfg, *, prefix_embeds=None,
+                    backend: str = "auto", remat: bool = False):
+    """Teacher-forced forward of tokens (B, S_text), after an optional
+    prefix (B, S_pre, D) projected by `vision_proj` where the model has
+    one. → (logits (B, S_pre + S_text, V), aux {load_balance, router_z}
+    summed over the layers)."""
+    x = embed_lookup(params["embed"], tokens)
+    if prefix_embeds is not None:
+        pe = prefix_embeds.to(x.dtype)
+        if "vision_proj" in params:
+            pe = pe @ params["vision_proj"]
+        x = torch.cat([pe, x], dim=1)
+    auxs = []
+    for i in range(cfg.num_layers):
+        x, aux = run_layer(_layer_train, remat,
+                           layer_at(params["layers"], i), x, cfg, backend)
+        auxs.append(aux)
+    return _head(params, x, cfg), sum_aux(auxs)
 
 
 def init_decoder_cache(cfg, batch: int, max_seq: int, device):

@@ -31,6 +31,7 @@ from dataclasses import replace
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.obs.timers import stage_name
 from repro_torch.openworld.attacks import (
     TRAIN_STAGE_NAMES,
@@ -47,6 +48,7 @@ from repro_torch.openworld.lifecycle import (
     with_population_params,
 )
 from repro_torch.openworld.metrics import stage_openworld_metrics
+from repro_torch.utils.pytree import tree_leaves
 
 
 def _lift(stage):
@@ -59,32 +61,47 @@ def _lift(stage):
     return lifted
 
 
-def threat_state(threat, m: int, device="cpu"):
-    """ThreatConfig → ThreatState with the cast on `device`, or None when
-    there is no adversary cast (zero fraction, or nothing for it to do)."""
-    if threat is None or threat.adversary_fraction <= 0.0:
-        return None
-    if threat.attack == "none" and threat.score_game == "none":
+def _casts(threat) -> bool:
+    """Whether `threat` has an adversary cast with something to do."""
+    return not (threat is None or threat.adversary_fraction <= 0.0
+                or (threat.attack == "none" and threat.score_game == "none"))
+
+
+def threat_state(threat, m: int, device="cuda"):
+    """ThreatConfig → ThreatState with the cast on `device` (default CUDA;
+    raises without it), or None when there is no adversary cast (zero
+    fraction, or nothing for it to do)."""
+    if not _casts(threat):
         return None
     return ThreatState(
         adversaries=torch.from_numpy(adversary_mask(
-            m, threat.adversary_fraction, threat.seed)).to(device),
+            m, threat.adversary_fraction, threat.seed)).to(
+                resolve_device(device)),
         attack=threat.attack, attack_scale=threat.attack_scale,
         noise_std=threat.noise_std, score_game=threat.score_game,
         cost_gain=threat.cost_gain)
 
 
-def make_open_spec(spec, fl, *, device="cpu"):
+def _state_device(state):
+    """The device of a strategy state's tensors (its first leaf)."""
+    return tree_leaves(state)[0].device
+
+
+def make_open_spec(spec, fl, *, device=None):
     """Wrap `spec` per `fl.threat` / `fl.churn` → a StrategySpec. Returns
     `spec` itself, not a copy, when there is nothing to do; else a spec
-    with a wrapped init (`{"inner", "alive"}` on `device`), the lifted
-    stages, and a `params_for_eval` and `affinity` that unwrap the
-    state."""
+    with a wrapped init (`{"inner", "alive"}`, alive on the inner state's
+    device), the lifted stages, and a `params_for_eval` and `affinity`
+    that unwrap the state. The adversary cast lives on `device`; None
+    means the card (`resolve_device`: raises without one), as every entry
+    point of the port defaults to it (`strategies.make_spec` passes its
+    own device)."""
     churn = fl.churn if fl.churn is not None and not fl.churn.inert \
         else None
-    tstate = threat_state(fl.threat, fl.num_clients, device)
-    if churn is None and tstate is None:
+    if churn is None and not _casts(fl.threat):
         return spec
+    device = resolve_device("cuda" if device is None else device)
+    tstate = threat_state(fl.threat, fl.num_clients, device)
 
     stages = spec.stages
     lifted = [_lift(s) for s in stages]
@@ -109,8 +126,9 @@ def make_open_spec(spec, fl, *, device="cpu"):
     alive0 = init_alive(fl.num_clients, churn)
 
     def open_init(seed):
-        return {"inner": inner_init(seed),
-                "alive": torch.from_numpy(alive0).to(device)}
+        inner = inner_init(seed)
+        return {"inner": inner,
+                "alive": torch.from_numpy(alive0).to(_state_device(inner))}
 
     kwargs = dict(init=open_init, stages=tuple(lifted),
                   params_for_eval=lambda state: inner_eval(state["inner"]))

@@ -21,16 +21,20 @@ from __future__ import annotations
 import torch
 
 
-def tree_map(fn, tree, *rest):
+def tree_map(fn, tree, *rest, is_leaf=None):
     """Apply `fn` leaf-wise over matching dict/list/tuple structures; None
-    is an empty tree, as in jax (a state without a peer store)."""
+    is an empty tree, as in jax (a state without a peer store). is_leaf:
+    an optional predicate that stops the descent (as jax's)."""
     if tree is None:
         return None
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest),
+                                   is_leaf=is_leaf)
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
 
@@ -39,48 +43,63 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+# The recursive walkers below are module-level functions: a nested
+# function that calls itself is a reference cycle (the function and its
+# closure cell), which would keep the leaves it reached alive until the
+# garbage collector runs, gigabytes for an LLM's gradients.
+
+def _walk_paths(node, path, out):
+    if node is None:
+        return
+    if isinstance(node, dict):
+        items = [(str(k), node[k]) for k in sorted(node)]
+    elif _is_namedtuple(node):
+        items = [(f, getattr(node, f)) for f in node._fields]
+    elif isinstance(node, (list, tuple)):
+        items = [(str(i), v) for i, v in enumerate(node)]
+    else:
+        out.append(("/".join(path), node))
+        return
+    for k, v in items:
+        _walk_paths(v, path + [k], out)
+
+
 def tree_paths(tree) -> list:
     """[(path, leaf)] in the reference's jax flatten order; None is an
     empty tree, as in jax."""
     out = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        if isinstance(node, dict):
-            items = [(str(k), node[k]) for k in sorted(node)]
-        elif _is_namedtuple(node):
-            items = [(f, getattr(node, f)) for f in node._fields]
-        elif isinstance(node, (list, tuple)):
-            items = [(str(i), v) for i, v in enumerate(node)]
-        else:
-            out.append(("/".join(path), node))
-            return
-        for k, v in items:
-            walk(v, path + [k])
-
-    walk(tree, [])
+    _walk_paths(tree, [], out)
     return out
+
+
+def _rebuild(node, path, leaf_of):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _rebuild(v, path + [str(k)], leaf_of)
+                for k, v in node.items()}
+    if _is_namedtuple(node):
+        return type(node)(*(_rebuild(getattr(node, f), path + [f], leaf_of)
+                            for f in node._fields))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_rebuild(v, path + [str(i)], leaf_of)
+                          for i, v in enumerate(node))
+    return leaf_of("/".join(path), node)
 
 
 def tree_unflatten_paths(like, leaf_of):
     """A tree shaped as `like` whose leaf at each path is
     `leaf_of(path, leaf)` (`tree_paths`' paths); None stays None."""
+    return _rebuild(like, [], leaf_of)
 
-    def walk(node, path):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: walk(v, path + [str(k)]) for k, v in node.items()}
-        if _is_namedtuple(node):
-            return type(node)(*(walk(getattr(node, f), path + [f])
-                                for f in node._fields))
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v, path + [str(i)])
-                              for i, v in enumerate(node))
-        return leaf_of("/".join(path), node)
 
-    return walk(like, [])
+def _walk_dotted(node, prefix, flat):
+    for k, v in node.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            _walk_dotted(v, name + ".", flat)
+        else:
+            flat[name] = v
 
 
 def ordered_leaves(tree) -> list:
@@ -88,16 +107,7 @@ def ordered_leaves(tree) -> list:
     leaf order (nested dict keys sorted, numeric name parts by value),
     the order the reference's tree reductions sum in."""
     flat = {}
-
-    def walk(node, prefix):
-        for k, v in node.items():
-            name = f"{prefix}{k}"
-            if isinstance(v, dict):
-                walk(v, name + ".")
-            else:
-                flat[name] = v
-
-    walk(tree, "")
+    _walk_dotted(tree, "", flat)
     return [flat[n] for n in leaf_order(flat)]
 
 
@@ -128,6 +138,17 @@ def _path_key(name: str):
 def leaf_order(names) -> list:
     """Dotted names in the reference's jax tree-flatten order."""
     return sorted(names, key=_path_key)
+
+
+def named_leaves(tree) -> list:
+    """[(name, leaf)] in the reference's leaf order: a flat dict of
+    dotted names (the cnn's parameters) by `leaf_order`, any other tree
+    by `tree_paths` ('/'-joined names). `tree_unflatten_paths(tree,
+    lambda name, _: new[name])` rebuilds a tree from these names."""
+    if isinstance(tree, dict) and all(isinstance(v, torch.Tensor)
+                                      for v in tree.values()):
+        return [(n, tree[n]) for n in leaf_order(tree)]
+    return tree_paths(tree)
 
 
 def tree_flatten_vector(tree: dict) -> torch.Tensor:

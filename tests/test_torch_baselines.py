@@ -37,6 +37,7 @@ from repro_torch.fl import strategies
 from repro_torch.fl.simulator import _finetune_heads, run_experiment
 from repro_torch.kernels import gossip_mix as gm
 from repro_torch.kernels import ops
+from repro_torch.utils.pytree import tree_paths
 
 from test_torch_support import _client_batch_idx, to_numpy, to_torch
 
@@ -64,28 +65,33 @@ def setup():
 
 
 def reference_baseline_draws(key, key_streams, params, *, n_local: int,
-                             n_steps: int, regrow: float):
+                             n_steps: int, regrow: float, m: int = M,
+                             ratio: float = RATIO, batch_size: int = BATCH,
+                             family: str = "cnn"):
     """A reference baseline round's draws under round key `key`, keyed by
     the port's stream names: participants, local-training batches, the
     gossip uniform plane and dispfl's regrow planes (split over the
     reference's leaves in its own flatten order, then carried to the
-    port's leaf names and layout)."""
+    port's leaf names and layout: `named_leaves`' names, a flat dict of
+    dotted names for the cnn and of '/'-joined paths for an LLM)."""
     keys = ref_named_streams(key, key_streams)
-    idx, _ = ref_sample_participants(keys["act"], M, RATIO)
+    idx, _ = ref_sample_participants(keys["act"], m, ratio)
     idx = np.asarray(idx)
     draws = {"act": idx, "train": np.stack([
-        _client_batch_idx(ks, n_local, BATCH, total=M, rows=idx)
+        _client_batch_idx(ks, n_local, batch_size, total=m, rows=idx)
         for ks in jax.random.split(keys["train"], n_steps)])}
     if "nbr" in keys:
-        draws["nbr"] = np.asarray(jax.random.uniform(keys["nbr"], (M, M)))
+        draws["nbr"] = np.asarray(jax.random.uniform(keys["nbr"], (m, m)))
     if "grow" in keys:
         leaves, treedef = jax.tree_util.tree_flatten(params)
         gkeys = jax.random.split(keys["grow"], len(leaves))
         planes = [np.asarray(jax.random.uniform(k, leaf.shape)
                              > (1.0 - regrow))
                   for leaf, k in zip(leaves, gkeys)]
-        draws["grow"] = convert.params_from_reference(
-            jax.tree_util.tree_unflatten(treedef, planes), device="cpu")
+        grow = convert.params_from_reference(
+            jax.tree_util.tree_unflatten(treedef, planes), device="cpu",
+            family=family)
+        draws["grow"] = grow if family == "cnn" else dict(tree_paths(grow))
     return draws
 
 

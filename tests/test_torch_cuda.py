@@ -1221,3 +1221,144 @@ def test_moe_prefill_on_card_agrees_with_cpu_and_repeats(cuda, arch):
     assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
     assert torch.equal(generate(cfg, card, toks.to(cuda), gen_tokens=6).cpu(),
                        generate(cfg, params, toks, gen_tokens=6))
+
+
+# ---------------------------------------------------------------------------
+# federated LLM training: the kernels at the LLM headers' width, the
+# column-blocked mix, the in-place mask evolution, a reduced LLM round
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_select_topk_and_raw_gram_at_llm_header_width(cuda):
+    """M = 4 rows of P = 2²⁷ + 5 columns (an LLM header's width class:
+    qwen2-1.5b's is 2.3e8): select_topk's selection exact against the
+    plain version and raw_gram's Gram within 1e-3 of its scale (f32 sums
+    of 1.3e8 products in another order); the slice bounds stay below
+    2³¹."""
+    from repro_torch.core.selection import topk_to_mask
+
+    m, p, k = 4, (1 << 27) + 5, 2
+    args = _case(m, p, 31, cuda, matrix_cost=True, cand=True)
+    v, i, s = ops.select_topk(*args, k=k, alpha=ALPHA, lam=LAM)
+    pv, pi, ps = ops.select_topk(*args, k=k, alpha=ALPHA, lam=LAM,
+                                 impl="plain")
+    assert torch.equal(topk_to_mask(i, v, m), topk_to_mask(pi, pv, m))
+    torch.testing.assert_close(v, pv, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(s, ps, rtol=1e-3, atol=1e-5 * m)
+    got = ops.raw_gram(args[0])
+    want = ops.raw_gram(args[0], impl="plain")
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    assert p < 2 ** 31
+
+
+@pytest.mark.cuda
+def test_blocked_gossip_mix_on_card_equals_one_call(cuda, monkeypatch):
+    """`engine.mix_tree` over column blocks (a leaf cut across blocks)
+    launches one gossip_mix a block and equals one call over the whole
+    packed tree bit for bit; the in-place mix writes the active rows
+    only."""
+    from repro_torch.core.aggregation import selection_to_weights
+    from repro_torch.fl import engine
+    from repro_torch.kernels.gossip_mix import weights_to_neighbors
+
+    g = torch.Generator(device=cuda).manual_seed(32)
+    m = 4
+    tree = {"a": torch.randn((m, 1000, 3), generator=g, device=cuda),
+            "b": torch.randn((m, 777), generator=g,
+                             device=cuda).to(torch.bfloat16)}
+    nbr = engine.gossip_edges(torch.rand((m, m), generator=g, device=cuda),
+                              2, directed=True)
+    w = selection_to_weights(nbr, include_self=True)
+    idx, wl = weights_to_neighbors(w, 3)
+    plan = engine.ExchangePlan("p2p", active=torch.ones(
+        m, dtype=torch.bool, device=cuda), weights=w, nbr_idx=idx, nbr_w=wl)
+    whole = engine.mix_tree(tree, plan, m)
+    monkeypatch.setattr(engine, "F32_BLOCK_COLUMNS", 1000)
+    ops.reset_launch_counts()
+    got = engine.mix_tree(tree, plan, m)
+    assert ops.launch_counts()["gossip_mix"] == 4   # 3777 columns
+    for a, b in zip(engine.tree_leaves(got), engine.tree_leaves(whole)):
+        assert torch.equal(a, b)
+    rows = torch.tensor([True, False, True, True], device=cuda)
+    inplace = engine.tree_map(torch.clone, tree)
+    engine.mix_tree(inplace, plan, m, rows=rows)
+    for a, b, o in zip(engine.tree_leaves(inplace),
+                       engine.tree_leaves(whole), engine.tree_leaves(tree)):
+        assert torch.equal(a[rows], b[rows])
+        assert torch.equal(a[~rows], o[~rows])
+
+
+@pytest.mark.cuda
+def test_mask_evolve_in_place_matches_plain(cuda):
+    """One call over a list of leaves, each evolved into its own tensor
+    and its mask into its grow plane, bitwise the plain version's."""
+    from repro_torch.kernels import mask_evolve as me
+
+    g = torch.Generator(device=cuda).manual_seed(33)
+    leaves = [(torch.randn((4, 300, 7), generator=g, device=cuda) * 0.05
+               ).to(dt) for dt in (torch.bfloat16, torch.float32)]
+    grows = [torch.rand(x.shape, generator=g, device=cuda) > 0.98
+             for x in leaves]
+    keeps = [x.numel() // 2 for x in leaves]
+    want = [me.mask_evolve_plain(x, gr, keep=k)
+            for x, gr, k in zip(leaves, grows, keeps)]
+    xs, gs = [x.clone() for x in leaves], [gr.clone() for gr in grows]
+    done = ops.mask_evolve_leaves(xs, gs, keeps, in_place=True)
+    for (out, mask), x, gr, (p_out, p_mask, _) in zip(done, xs, gs, want):
+        assert out.data_ptr() == x.data_ptr()
+        assert mask.data_ptr() == gr.data_ptr()
+        assert torch.equal(mask, p_mask)
+        bits = torch.int16 if out.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(out.view(bits), p_out.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pfeddst", "dfedpgp"])
+def test_reduced_llm_round_on_card_agrees_with_cpu(cuda, name):
+    """One round of `name` over reduced qwen2-1.5b in f32 (M = 4, k = 2,
+    every client sampled; the population trains in place), on the card
+    and on the CPU from the same initial state and draws: the selected
+    edges equal, the parameters within 1e-4 of each leaf's scale."""
+    import dataclasses
+
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.fl.strategies import make_strategy
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
+                              dtype="float32")
+    fl = FLConfig(num_clients=4, peers_per_round=2, batch_size=4,
+                  client_sample_ratio=1.0, epochs_extractor=1,
+                  probe_size=2, lr=0.05, use_score_kernel=True, comms=None)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 6, 16),
+                           generator=torch.Generator().manual_seed(34))
+    out = {}
+    for dev in ("cpu", cuda):
+        strat = make_strategy(name, cfg, fl, 1, device="cpu")
+        state = strat.init(0)
+        state = _state_to(state, dev)
+        strat = make_strategy(name, cfg, fl, 1, device=dev)
+        state, met = strat.round(state, {"tokens": tokens.to(dev)}, (0, 0))
+        out[str(dev)] = (strat.params_for_eval(state),
+                         met.get("select_mask", met.get("comm_edges")))
+    (p_cpu, e_cpu), (p_dev, e_dev) = out["cpu"], out[str(cuda)]
+    assert torch.equal(e_cpu, e_dev.cpu())
+    from repro_torch.utils.pytree import tree_leaves
+
+    for a, b in zip(tree_leaves(p_dev), tree_leaves(p_cpu)):
+        scale = max(1.0, float(b.abs().max()))
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
+
+
+def _state_to(state, dev):
+    """A strategy state (a PopulationState or a dict) with every tensor on
+    `dev` but the round counter, which stays on the host."""
+    from repro_torch.core.client_state import PopulationState
+    from repro_torch.utils.pytree import tree_map
+
+    if isinstance(state, PopulationState):
+        moved = {f: tree_map(lambda t: t.to(dev), getattr(state, f))
+                 for f in ("extractor", "header", "opt_e", "opt_h",
+                           "loss_matrix", "last_selected")}
+        return state._replace(**moved)
+    return {k: (v if k == "round" else tree_map(lambda t: t.to(dev), v))
+            for k, v in state.items()}

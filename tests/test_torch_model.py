@@ -105,7 +105,7 @@ def test_cnn_forward_matches_reference(cfgs, params):
     rp, tp = params
     b = _batch()
     want, _ = ref_model.forward(ref_cfg, rp, _jbatch(b))
-    got = model.forward(cfg, tp, _tbatch(b))
+    got, _ = model.forward(cfg, tp, _tbatch(b))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                rtol=RTOL, atol=ATOL)
 
@@ -132,7 +132,8 @@ def test_grouped_eval_equals_separate_evals(cfgs, params):
     _, tp = params
     imgs = torch.randn(4, 3, 16, 16, 3)
     labels = torch.randint(0, 10, (4, 3))
-    got = model.eval_loss_grouped(cfg, tp, imgs, labels)
+    got = model.eval_loss_probes(cfg, tp, {"images": imgs,
+                                           "labels": labels})
     want = torch.stack([model.eval_loss(cfg, tp, {"images": imgs[g],
                                                   "labels": labels[g]})
                         for g in range(4)])

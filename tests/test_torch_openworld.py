@@ -422,7 +422,8 @@ def test_threat_state_inert_forms():
     assert ow.threat_state(ThreatConfig(adversary_fraction=0.5), 6) is None
     assert ow.threat_state(ThreatConfig(defense="median"), 6) is None
     ts = ow.threat_state(ThreatConfig(adversary_fraction=0.5,
-                                      attack="sign_flip", seed=4), 6)
+                                      attack="sign_flip", seed=4), 6,
+                         device="cpu")
     want = ref_ow.threat_state(RefThreatConfig(adversary_fraction=0.5,
                                                attack="sign_flip", seed=4), 6)
     np.testing.assert_array_equal(ts.adversaries.numpy(),

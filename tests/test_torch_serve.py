@@ -626,26 +626,33 @@ def test_init_params_matches_reference_layout():
 
 
 def test_unported_families_and_backends_raise():
-    """Every LLM family serves since the moe and vlm families were ported
-    (their caches are made), but none trains: `model.forward` on an LLM
-    family raises (queue 1 item 12); nor is rwkv's "chunked" prefill
-    ported. The attention
-    backend "chunked" is (test_chunked_attention_matches_reference); an
-    unknown backend raises."""
+    """Every LLM family serves and, since LLM training was ported (queue
+    1 item 12), trains: `model.forward` and `model.loss_fn` on an LLM
+    family return logits and a finite loss, and rwkv's "chunked" prefill
+    runs (`wkv_chunked_torch`). The attention backend "chunked" is
+    ported (test_chunked_attention_matches_reference); an unknown
+    attention or rwkv backend raises."""
     for arch in ("qwen2-1.5b", "phi3.5-moe-42b-a6.6b", "internvl2-76b"):
         cfg = get_config(arch).reduced()
         assert model.init_cache(cfg, 1, 4, "cpu")["k"].shape[2] == 4
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            model.forward(cfg, {}, {"tokens": torch.zeros(1, 2)})
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            model.loss_fn(cfg, {}, {"tokens": torch.zeros(1, 2)})
+        params = model.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+        toks = torch.zeros(1, 2, dtype=torch.int64)
+        logits, aux = model.forward(cfg, params, {"tokens": toks})
+        assert logits.shape[:2] == (1, 2)
+        assert set(aux) == {"load_balance", "router_z"}
+        total, _ = model.loss_fn(cfg, params, {"tokens": toks})
+        assert torch.isfinite(total)
     q = torch.zeros(1, 4, 2, 8)
     assert attention.attend(q, q, q, backend="chunked").shape == q.shape
     with pytest.raises(ValueError, match="unknown attention backend"):
         attention.attend(q, q, q, backend="blocked")
     cfg = get_config("rwkv6-7b").reduced()
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        rwkv.rwkv_prefill({}, torch.zeros(1, 2, dtype=torch.int32), cfg,
-                          backend="chunked")
+    params = model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.zeros(1, 2, dtype=torch.int32)
+    logits, _ = rwkv.rwkv_prefill(params, toks, cfg, backend="chunked")
+    assert logits.shape[:2] == (1, 2)
+    with pytest.raises(ValueError, match="unknown rwkv backend"):
+        rwkv.rwkv_prefill(params, toks, cfg, backend="blocked")
     with pytest.raises(ValueError, match="no decode step"):
         model.init_cache(get_config("resnet18-cifar"), 1, 4, "cpu")
