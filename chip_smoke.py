@@ -314,6 +314,23 @@ Phases, each of which fails the script (non-zero exit) on any fault:
             their plain versions, timed beside the library call
             (select_topk's row statistics and raw_gram, sums over P =
             2.3e8, held within 1e-3 and reported against float64).
+13. dryrun  (a) the serve_demo twin's `main` with its defaults (qwen2-1.5b,
+            deepseek-v3-671b, rwkv6-7b, recurrentgemma-2b, each
+            `.reduced()`; batch 4, prompt 16, 8 greedy tokens) on the
+            card, the launch counters set to 0 just before and read just
+            after (flash_attention and wkv_chunked must have launched),
+            and on the CPU from the same weights and prompts; then both
+            in float32 (`--dtype float32`), whose greedy tokens must be
+            equal (in bf16 the card's rounding can part them: the
+            first differing (row, step) is printed). (b) the one-card
+            dry run (`launch.dryrun`, a meta trace) against the card at two
+            cells that fit it: qwen2-1.5b's prefill at 4 × 4096 (phase
+            3's serving shape) and its remat pair step at phase 12's 8 ×
+            64; the dry run's `argument_size_in_bytes` must equal the
+            real inputs' bytes, and the steady wall of the real step must
+            be at least max(t_compute_s, t_memory_s); the ratio and the
+            peak-live reckoning beside `torch.cuda.max_memory_allocated`
+            above the inputs are printed.
 
 Output: each phase's wall, the card's name and power limit (nvidia-smi),
 one `kernels` JSON line (`launches` from phase 3's run of the kernel's
@@ -322,6 +339,7 @@ path, `launches_fabric` from each phase-6 run, select_topk's
 gossip_mix and mask_evolve from each phase-8 run; `launches_driver` of
 the same three from each phase-9 run; `launches_llm` and `llm_shape`
 of select_topk, raw_gram, gossip_mix and mask_evolve from phase 12;
+`launches_serve_demo` of flash_attention and wkv_chunked from phase 13;
 flash's `hd256`, `mla` and
 `serving_shapes` rows from phase 2, and `launches_serve`, each serving
 run's launches, from phase 3; mask_evolve's count calls,
@@ -346,12 +364,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, dense
-# bf16 and fp16 and TF32 on the tensor cores, HBM3
-FP32_FLOPS = 67e12
-TENSOR_16BIT_FLOPS = 989e12
-TENSOR_TF32_FLOPS = 495e12
-HBM_BYTES_PER_S = 3.35e12
 BASELINE_LR = 0.01   # the six baselines' SGD rate in phase 3 (see there)
 
 
@@ -379,8 +391,20 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound(bytes_moved: float, flops: float, peak: float = FP32_FLOPS):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+def chip():
+    """The H100 SXM's data-sheet peaks (`repro_torch.utils.hw.H100_SXM`:
+    fp32 FFMA, dense bf16/fp16 and TF32 tensor cores, HBM3)."""
+    from repro_torch.utils.hw import H100_SXM
+
+    return H100_SXM
+
+
+def bound(bytes_moved: float, flops: float, peak: float | None = None):
+    """ms: the larger of the bytes once at HBM bandwidth and the
+    operations at `peak` (default the fp32 FFMA peak)."""
+    h100 = chip()
+    peak = h100.peak_flops_fp32 if peak is None else peak
+    t_bytes = bytes_moved / h100.hbm_bandwidth * 1e3
     t_ops = flops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -881,17 +905,6 @@ def check_evolve_stage(me, shapes, keep_frac, seed, dev, iters):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def visible_pairs(sq, skv, *, causal, window, q_offset) -> int:
-    """(query, key) pairs the mask keeps: the work attention must do."""
-    import numpy as np
-
-    rows = np.arange(sq, dtype=np.int64) + q_offset
-    hi = np.minimum(rows, skv - 1) if causal else np.full(sq, skv - 1)
-    lo = np.maximum(rows - window + 1, 0) if window else np.zeros(sq,
-                                                                  np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def check_flash(ops, ref, case, dtype, dev, iters, *, plain=True,
                 library=False, dv=None):
     """One flash_attention case: the kernel of its dtype's route (bf16,
@@ -902,6 +915,7 @@ def check_flash(ops, ref, case, dtype, dev, iters, *, plain=True,
     import torch
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.roofline import flash_work
 
     b, sq, skv, h, kh, hd, causal, window, q_offset = case
     dv = dv or hd
@@ -964,12 +978,12 @@ def check_flash(ops, ref, case, dtype, dev, iters, *, plain=True,
             row["library_ms"] = time_ms(
                 lambda: sdpa(qt, kt, vt, is_causal=causal, **gqa),
                 iters, warmup=1)
-    flops = 2.0 * b * h * (hd + dv) * visible_pairs(sq, skv, **kw)
-    nbytes = (q.numel() + k.numel() + v.numel() + b * sq * h * dv) * \
-        q.element_size()
-    peak = FP32_FLOPS if dtype == torch.float32 else TENSOR_16BIT_FLOPS
+    flops, nbytes = flash_work(b, sq, skv, h, kh, hd, dv, q.element_size(),
+                               **kw)
+    peak = (chip().peak_flops_fp32 if dtype == torch.float32
+            else chip().peak_flops_bf16)
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peak)
-    row["fp32_ffma_bound_ms"], _ = bound(nbytes, flops, FP32_FLOPS)
+    row["fp32_ffma_bound_ms"], _ = bound(nbytes, flops)
     row["tflops"] = flops / row["ms"] / 1e9
     inst = fa.padded_head_dim(hd)
     row["kernel_head_dim"] = inst
@@ -980,14 +994,6 @@ def check_flash(ops, ref, case, dtype, dev, iters, *, plain=True,
         row["tflops_tensor_work"] = (qk * 2 + 4) * inst / \
             (2 * (hd + dv)) * row["tflops"]
     return row
-
-
-def wkv_ops(b, s, h, hd) -> float:
-    """Operations the WKV recurrence needs over the sequence, per token and
-    head: r·S (2·hd²), the state's decay and k·vᵀ update (3·hd²), and the
-    bonus r·(u⊙k)·v (5·hd). Fewer than the TPU kernel's chunked form does
-    (its (C, C, hd) decay products and exps: 2.2× more at hd = C = 64)."""
-    return float(b * s * h * (5 * hd * hd + 5 * hd))
 
 
 def check_wkv(ops, ref, b, s, h, dtype, hi, state, dev, iters,
@@ -1002,6 +1008,8 @@ def check_wkv(ops, ref, b, s, h, dtype, hi, state, dev, iters,
     (exps of log-w prefix-sum differences, |cum| up to 64·87.5) is itself
     further from it than these tolerances (its distance is printed)."""
     import torch
+
+    from repro_torch.launch.roofline import wkv_work
 
     hd = 64
     g = torch.Generator(device=dev).manual_seed(s + h + b)
@@ -1040,10 +1048,9 @@ def check_wkv(ops, ref, b, s, h, dtype, hi, state, dev, iters,
     ms = time_ms(lambda: ops.wkv(r, k, v, w, u, s0), iters, warmup=1)
     plain_ms = time_ms(lambda: ops.wkv(r, k, v, w, u, s0, impl="plain"),
                        plain_iters, warmup=1)
-    nbytes = 4 * r.numel() * r.element_size() + w.numel() * 4 + \
-        u.numel() * 4 + (2 if state else 1) * b * h * hd * hd * 4
-    b_ms, b_by = bound(nbytes, wkv_ops(b, s, h, hd), TENSOR_TF32_FLOPS)
-    ffma_ms, _ = bound(nbytes, wkv_ops(b, s, h, hd))
+    flops, nbytes = wkv_work(b, s, h, hd, r.element_size(), state=state)
+    b_ms, b_by = bound(nbytes, flops, chip().peak_flops_tf32)
+    ffma_ms, _ = bound(nbytes, flops)
     return dict(b=b, s=s, h=h, hd=hd, dtype=str(dtype).split(".")[-1],
                 w_min=float(w.min()), state=state, zero_w=zero_w,
                 max_abs_err=err, state_err=s_err, state_scale=s_scale,
@@ -3883,6 +3890,131 @@ def llm_train_phase(dev, ops, ref, me) -> dict:
                 agree=agree)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the serve_demo twin and the one-card dry run against the card
+# ---------------------------------------------------------------------------
+
+# (b): the dry run's cells that fit one card: (name, arch, seq, batch, kind)
+DRY_CELLS = (("prefill_4x4096", "qwen2-1.5b", 4096, 4, "prefill"),
+             ("train_8x64", "qwen2-1.5b", LLM_SEQ, TRAIN_BATCH, "train"))
+
+
+def _first_difference(a, b):
+    """(row, generated position) of the first greedy token where two
+    (B, S + gen) token tensors differ, or None."""
+    diff = (a != b).nonzero()
+    if not len(diff):
+        return None
+    row, pos = (int(x) for x in diff[0])
+    return [row, pos - SERVE_DEMO_PROMPT]
+
+
+SERVE_DEMO_PROMPT = 16       # the serve_demo twin's default --prompt-len
+
+
+def check_serve_demo(ops) -> dict:
+    """(a) the serve_demo twin with its defaults (bf16) on the card, its
+    launches counted alone, and on the CPU; then both again in float32,
+    where the greedy tokens must be equal (bf16 tokens may part: the
+    card's kernels and GEMMs round otherwise than the CPU's plain
+    versions; where they do is reported)."""
+    import torch
+
+    from repro_torch.examples import serve_demo
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = serve_demo.main([])
+    card_s = time.perf_counter() - t0
+    launches = {k: ops.launch_counts()[k]
+                for k in ("flash_attention", "wkv_chunked")}
+    if not all(launches.values()):
+        raise AssertionError(f"serve_demo: a serving kernel never launched: "
+                             f"{launches}")
+    cpu = serve_demo.main(["--device", "cpu"])
+    bf16_first_difference = {a: _first_difference(t, cpu[a])
+                             for a, t in card.items()}
+    card32 = serve_demo.main(["--dtype", "float32"])
+    cpu32 = serve_demo.main(["--device", "cpu", "--dtype", "float32"])
+    for arch, toks in card32.items():
+        if not torch.equal(toks, cpu32[arch]):
+            raise AssertionError(f"serve_demo {arch} (float32): greedy "
+                                 "tokens differ between card and CPU: "
+                                 f"{toks.tolist()} vs "
+                                 f"{cpu32[arch].tolist()}")
+    return dict(archs=list(card), launches=launches, card_s=card_s,
+                bf16_first_difference=bf16_first_difference)
+
+
+def check_dryrun_cell(name, arch, seq, batch, kind, dev) -> dict:
+    """(b) one dry-run cell: the meta trace's record, then the same step
+    on real inputs on the card (built by `dryrun.build` from a seed):
+    argument bytes equal, the steady wall (the least of two runs after a
+    first) at least the roofline time, the peaks side by side."""
+    import torch
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+
+    cfg = get_config(arch)
+    shape = InputShape(name, seq, batch, kind)
+    rec = dryrun.run_combo(arch, name, False, verbose=False, cfg=cfg,
+                           shape=shape)
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry run {arch} {name}: {rec}")
+    torch.cuda.empty_cache()
+    fn, args = dryrun.build(cfg, shape, False, device=dev, seed=0)
+    real_bytes = dryrun.storage_bytes(args)
+    if real_bytes != rec["argument_size_in_bytes"]:
+        raise AssertionError(f"dry run {arch} {name}: argument bytes "
+                             f"{rec['argument_size_in_bytes']} against the "
+                             f"real inputs' {real_bytes}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del out
+    peak_above = torch.cuda.max_memory_allocated() - base
+    del args
+    torch.cuda.empty_cache()
+    steady = min(walls[1:])
+    roof = max(rec["t_compute_s"], rec["t_memory_s"])
+    row = dict(cell=name, arch=arch, kind=kind, batch=batch, seq=seq,
+               argument_bytes=real_bytes, first_s=walls[0], steady_s=steady,
+               t_compute_s=rec["t_compute_s"], t_memory_s=rec["t_memory_s"],
+               bottleneck=rec["bottleneck"], wall_over_roofline=steady / roof,
+               flops=rec["hlo_flops_per_dev"], bytes=rec["hlo_bytes_per_dev"],
+               xla_flops=rec["xla_flops_per_dev"],
+               kernel_calls=rec["kernel_calls"],
+               temp_size_in_bytes=rec["temp_size_in_bytes"],
+               max_allocated_above_inputs=peak_above,
+               trace_s=rec["t_lower_s"])
+    print(f"dry run {arch} {name}: steady {steady:.4f} s against the "
+          f"roofline's {roof:.4f} s ({rec['bottleneck']}; ratio "
+          f"{steady / roof:.2f}); peak-live reckoning "
+          f"{rec['temp_size_in_bytes'] / 1e9:.3f} GB, max_memory_allocated "
+          f"above the inputs {peak_above / 1e9:.3f} GB", flush=True)
+    if steady < roof:
+        raise AssertionError(f"dry run {arch} {name}: the card ran the step "
+                             f"in {steady} s, under the roofline's {roof} "
+                             "s: the count is wrong")
+    return row
+
+
+def dryrun_phase(dev, ops) -> dict:
+    """Phase 13: (a) the serve_demo twin, (b) the dry run's cells."""
+    demo = check_serve_demo(ops)
+    print("serve_demo: card = CPU greedy tokens in float32 for",
+          demo["archs"], json.dumps(demo), flush=True)
+    cells = [check_dryrun_cell(*cell, dev) for cell in DRY_CELLS]
+    return dict(serve_demo=demo, cells=cells)
+
+
 def main() -> int:
     try:
         import torch
@@ -4227,6 +4359,14 @@ def main() -> int:
     walls["12 llm"] = time.perf_counter() - t_phase
     print(f"phase 12 wall: {walls['12 llm']:.1f} s", flush=True)
 
+    t_phase = time.perf_counter()
+    # ---- 13. the serve_demo twin and the dry run against the card ---------
+    dry = dryrun_phase(dev, ops)
+    (OUT_DIR / "chip_smoke_dryrun.json").write_text(json.dumps(dry))
+    print("dry run cells:", json.dumps(dry["cells"]), flush=True)
+    walls["13 dryrun"] = time.perf_counter() - t_phase
+    print(f"phase 13 wall: {walls['13 dryrun']:.1f} s", flush=True)
+
     # ---- output -------------------------------------------------------------
     k_main = main_sel[-1]
     assert k_main["matrix_cost"] and k_main["cand"]
@@ -4330,6 +4470,9 @@ def main() -> int:
             entry["launches_openworld"] = launches_ow[entry["name"]]
         if entry["name"] in launches_driver:
             entry["launches_driver"] = launches_driver[entry["name"]]
+        if name in dry["serve_demo"]["launches"]:
+            entry["launches_serve_demo"] = \
+                dry["serve_demo"]["launches"][name]
     print("round walls (s):", json.dumps(
         {r["name"]: r["round_walls_s"] for r in paths}), flush=True)
     print("serving (s, tokens/s):", json.dumps(

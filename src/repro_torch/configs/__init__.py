@@ -9,9 +9,9 @@ from repro_torch.configs import (deepseek_v3, internvl2_76b, phi35_moe,
                                  qwen2_1_5b, qwen2_5_14b, qwen2_5_3b,
                                  recurrentgemma_2b, resnet18_cifar, rwkv6_7b,
                                  starcoder2_7b, whisper_base)
-from repro_torch.configs.base import (ChurnConfig, CommsConfig,
-                                      DeviceProfile, FLConfig, ModelConfig,
-                                      ThreatConfig)
+from repro_torch.configs.base import (INPUT_SHAPES, ChurnConfig,
+                                      CommsConfig, DeviceProfile, FLConfig,
+                                      InputShape, ModelConfig, ThreatConfig)
 
 ARCH_REGISTRY: dict[str, ModelConfig] = {
     "phi3.5-moe-42b-a6.6b": phi35_moe.CONFIG,
@@ -27,6 +27,8 @@ ARCH_REGISTRY: dict[str, ModelConfig] = {
     "resnet18-cifar": resnet18_cifar.CONFIG,
 }
 
+ASSIGNED_ARCHS = [k for k in ARCH_REGISTRY if k != "resnet18-cifar"]
+
 
 def get_config(name: str) -> ModelConfig:
     if name not in ARCH_REGISTRY:
@@ -36,5 +38,6 @@ def get_config(name: str) -> ModelConfig:
     return ARCH_REGISTRY[name]
 
 
-__all__ = ["ARCH_REGISTRY", "ChurnConfig", "CommsConfig", "DeviceProfile",
-           "FLConfig", "ModelConfig", "ThreatConfig", "get_config"]
+__all__ = ["ARCH_REGISTRY", "ASSIGNED_ARCHS", "ChurnConfig", "CommsConfig",
+           "DeviceProfile", "FLConfig", "INPUT_SHAPES", "InputShape",
+           "ModelConfig", "ThreatConfig", "get_config"]

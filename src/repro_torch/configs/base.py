@@ -10,6 +10,8 @@ and the network fabric (`CommsConfig`, `repro_torch.comms`), and the
 semi-async rounds' device model (`DeviceProfile`, `deadline_s`,
 `staleness_alpha`, `version_depth`; `repro_torch.fl.hetero`), and the open
 world (`ThreatConfig`, `ChurnConfig`; `repro_torch.openworld`).
+`InputShape` / `INPUT_SHAPES` are the reference's four assigned step
+shapes, which the dry run (`repro_torch.launch.dryrun`) counts.
 """
 from __future__ import annotations
 
@@ -161,6 +163,26 @@ class ModelConfig:
         if self.family == "cnn":
             changes.update(cnn_stages=(1, 1), cnn_width=16)
         return dataclasses.replace(self, **changes)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

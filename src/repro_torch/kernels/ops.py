@@ -12,7 +12,11 @@ Routing is by the device of the input, never by a fallback: a CUDA tensor
 reaches the CUDA kernel (or the kernel raises), a CPU tensor takes the
 plain PyTorch version. `impl="plain"` asks for the plain version
 explicitly on either device (the tests and `chip_smoke.py` compare the
-two with it); `impl="cuda"` on a CPU tensor raises.
+two with it); `impl="cuda"` on a CPU tensor raises. On `meta` tensors
+(the dry run, `launch/dryrun.py`) flash_attention and wkv run neither:
+they return empty outputs of the kernel's shapes and report the call to
+`META_OBSERVERS`, which count it by the kernel's work
+(`launch/roofline.OpCounter`).
 """
 from __future__ import annotations
 
@@ -37,6 +41,15 @@ KERNELS = {"flash_attention": _fa.flash_attention_cuda,
 # dense einsum stops fitting in cache). On a CUDA card the plan is always
 # packed for the kernel, as the reference does on a TPU.
 MIN_PACKED_MIX_CPU = 1024
+
+# callables told of each flash_attention / wkv call on meta tensors, as
+# observer(kernel name, *the call's arguments, **its options)
+META_OBSERVERS: list = []
+
+
+def _meta_call(name, *args, **kwargs):
+    for observer in META_OBSERVERS:
+        observer(name, *args, **kwargs)
 
 
 def launch_counts() -> dict:
@@ -164,6 +177,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     q.dtype. A dv below hd (MLA: 192 / 128) runs the kernel on v
     zero-padded to the instance's head dim (zero columns of v add exact
     zeros to P·v), the plain version on v as it is."""
+    if q.is_meta and impl is None:
+        _meta_call("flash_attention", q, k, v, causal=causal, window=window,
+                   q_offset=q_offset)
+        return q.new_empty(q.shape[:3] + v.shape[3:])
     if _route(q, impl) == "cuda":
         return _fa.flash_attention_cuda(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
@@ -176,6 +193,11 @@ def wkv(r, k, v, w, u, state=None, *, impl: str | None = None):
     """Chunked RWKV6 WKV: r/k/v (B, S, H, hd) in the model dtype, w f32
     decays, u (H, hd) f32, state (B, H, hd, hd) f32 or None → (out in
     r.dtype, final state f32)."""
+    if r.is_meta and impl is None:
+        _meta_call("wkv_chunked", r, k, v, w, u, state)
+        b, _, h, hd = r.shape
+        return r.new_empty(r.shape), r.new_empty((b, h, hd, hd),
+                                                 dtype=torch.float32)
     if _route(r, impl) == "cuda":
         return _wkv.wkv_chunked_cuda(
             r.contiguous(), k.contiguous(), v.contiguous(),

@@ -58,7 +58,9 @@ def torch_dtype(name) -> torch.dtype:
 
 
 def normal(generator, shape, std: float, dtype, device):
-    """N(0, std²) draws from `generator` (in f32, then cast to dtype)."""
+    """N(0, std²) draws from `generator` (in f32, then cast to dtype). On
+    the meta device (the dry run's parameter structs) nothing is drawn
+    or allocated, and the generator's state is left as it was."""
     x = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
     return x.mul_(std).to(torch_dtype(dtype))
@@ -69,9 +71,12 @@ def normal_sliced(generator, shape, std: float, dtype, device, *,
     """N(0, std²) draws from `generator` into a tensor of `dtype`, one
     slice of the first `lead` axes at a time (each drawn in f32, then
     cast): a stacked leaf never has an f32 copy of its whole, only of one
-    slice. The draws differ from `normal`'s over the same shape."""
+    slice. The draws differ from `normal`'s over the same shape. On the
+    meta device an empty tensor (no slice loop), as `normal`."""
     shape = tuple(shape)
     out = torch.empty(shape, dtype=torch_dtype(dtype), device=device)
+    if out.is_meta:
+        return out
     for piece in out.view((-1,) + shape[lead:]):
         piece.copy_(torch.randn(shape[lead:], generator=generator,
                                 device=device,

@@ -32,9 +32,9 @@ Record shapes (all extra keys allowed; required keys validated):
 from __future__ import annotations
 
 import json
+import sys
 
 import numpy as np
-import torch
 
 SCHEMA_VERSION = 1
 
@@ -54,14 +54,18 @@ DEVICE_KEYS = ("wall_s", "straggler_s", "eff_lag")
 
 
 def _jsonable(value):
-    """torch/numpy scalars and arrays → plain Python for json.dumps."""
+    """torch/numpy scalars and arrays → plain Python for json.dumps. (torch
+    is looked up, not imported: a process that has not imported it holds
+    no tensor, and `repro_torch.tools.trace_report` reads this module
+    without it.)"""
     if isinstance(value, dict):
         return {k: _jsonable(v) for k, v in value.items()}
     if isinstance(value, (list, tuple)):
         return [_jsonable(v) for v in value]
     if isinstance(value, (bool, int, float, str)) or value is None:
         return value
-    if isinstance(value, torch.Tensor):
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(value, torch.Tensor):
         value = value.detach().cpu().numpy()
     arr = np.asarray(value)
     if arr.ndim == 0:

@@ -1362,3 +1362,25 @@ def _state_to(state, dev):
         return state._replace(**moved)
     return {k: (v if k == "round" else tree_map(lambda t: t.to(dev), v))
             for k, v in state.items()}
+
+
+@pytest.mark.cuda
+def test_serve_demo_on_card_equals_cpu_and_runs_flash(cuda):
+    """The serve_demo twin's `serve_arch` for reduced qwen2-1.5b (f32,
+    the demo's batch, prompt and length) from the same CPU-drawn weights
+    and prompts: greedy tokens on the card equal the CPU's, and the card
+    run launched flash_attention once a layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_demo
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
+                              dtype="float32")
+    params, prompts = serve_demo.make_inputs(cfg, 4, 16, 0)
+    before = ops.launch_counts()["flash_attention"]
+    card, _ = serve_demo.serve_arch(cfg, params, prompts, 8, cuda)
+    assert ops.launch_counts()["flash_attention"] - before == \
+        cfg.num_layers
+    cpu, _ = serve_demo.serve_arch(cfg, params, prompts, 8, "cpu")
+    assert torch.equal(card, cpu)
